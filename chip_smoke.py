@@ -9,18 +9,24 @@ prints no result):
 1. device: requires CUDA (no CPU fallback); prints torch / CUDA versions and
    the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
-   for sm_90a;
+   for sm_90a, one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, with the stated tolerance, and timed
-   against it;
-4. slice: the flagship 831M MarkushGrapherConfig() with seeded random bf16
-   weights, served through `Evaluator.generate_batch` at batch 8 for 512
-   greedy steps (eos never fires); checks the launch counts of every kernel;
-   holds every kernel call of one encode and of the first 8 decode steps to
-   its plain version on the same inputs; prints the end-to-end difference
-   from the plain path beside a half-ulp-nudge control; decodes a few rows
-   to strings;
-5. timing: encode ms, decode ms/step and img/s at batch 8 and 48.
+   the shapes the main paths give it, with the stated tolerance, timed
+   against it, beside its bound (bytes over 3.35 TB/s or operations over
+   989 TFLOP/s bf16, whichever is larger) and, where one PyTorch call
+   computes the same function, that call's time;
+4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
+   weights, served through `Evaluator.generate_batch` at batch 8 with eos
+   never firing, along four paths: greedy under int4 KV for 512 steps, beam-5
+   under int4 KV for 512 steps, greedy under int8 KV for 512 steps, and
+   beam-5 under int8 KV for 128 steps. For each: the launch counts of every
+   kernel (every count set to 0 just before the path, read just after), and
+   every kernel call of the encode and of the first 8 decode steps held to
+   its plain version on the same inputs. For the int4 greedy path also the
+   end-to-end difference from the plain path beside a half-ulp-nudge
+   control, and a few rows decoded to strings;
+5. timing: encode ms, decode ms/step and img/s of int4 greedy at batch 8 and
+   48, beam-5 (int4) at batch 8 and 16, int8 greedy at batch 8 and 48.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and `{"ok": true, "device": {...}}`.
@@ -44,18 +50,29 @@ KERNELS = {
                  "markushgrapher_tpu/ops/flash_attention.py:152"),
     "decode_int4": ("markushgrapher_torch/csrc/decode_int4.cu",
                     "markushgrapher_tpu/ops/mxu_decode.py:498"),
+    "decode_i8": ("markushgrapher_torch/csrc/decode_i8.cu",
+                  "markushgrapher_tpu/ops/mxu_decode.py:351"),
 }
+# the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
+# tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
+# operations over these
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 # kernel-vs-plain tolerances (|kernel - plain| <= atol + rtol * |plain|):
 #  - bias_build_i8 is exact (same LUT buckets, same float32 op order);
-#  - flash_i8 and decode_int4 return bf16, and sum in another order than
-#    the plain float32 matmuls: two bf16 ulps (2 * 2^-7 relative), plus a
-#    small absolute floor for outputs near zero. decode_int4 also rounds
-#    p * vs to bf16 inside, where a one-ulp flip of one weight can move the
-#    output by a little more.
+#  - flash_i8, decode_int4 and decode_i8 return bf16, and sum in another
+#    order than the plain float32 matmuls: two bf16 ulps (2 * 2^-7
+#    relative), plus a small absolute floor for outputs near zero. The
+#    decode kernels also round p * vs to bf16 inside, where a one-ulp flip
+#    of one weight can move the output by a little more.
 # The same tolerances hold for every kernel call inside the model (phase 4),
 # where they gate the attention output before the o-projection and the
 # residual add.
-TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2)}
+TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
+       "decode_i8": (2e-3, 2e-2)}
+# phase 4's paths at batch 8: (name, int4 KV, beams, decode steps)
+PATHS = (("greedy_int4", True, 1, 512), ("beam5_int4", True, 5, 512),
+         ("greedy_int8", False, 1, 512), ("beam5_int8", False, 5, 128))
+CHECKED_STEPS = 8
 
 
 def gpu_line() -> str:
@@ -66,13 +83,21 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of fn. A sleep kernel queued ahead of the timed
+    calls outlasts their host time (measured on the warm-up calls, with the
+    sleep's cycles counted at the card's top clock, 1.98 GHz), so the host
+    has queued every call before the device reaches the first: the events
+    then time the device work, not the wrappers' Python."""
     import torch
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * host_s * iters * 1.98e9) + 1000)
     start.record()
     for _ in range(iters):
         fn()
@@ -96,10 +121,44 @@ def within(name: str, got, ref) -> float:
     return float(err.max())
 
 
-def check_kernels(dev) -> dict:
-    """Each kernel against its plain version at main-path shapes. Returns
-    {name: {max_abs_err, ms, plain_ms}}."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the bf16 tensor rate, whichever is larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def decode_bound(q, kq, ks, vq, vs, bias, out) -> dict:
+    """Bound of one decode attention call on this run's data: only the keys
+    that some query row does not mask (bias above -1e8) need their K/V and
+    scale bytes read; 4 operations per (query row, live key, head dim)."""
+    kv_len = kq.shape[1]
+    live = int((bias.amax(dim=(0, 1)) > -1e8).sum())
+    kv_bytes = nbytes(kq, vq, ks, vs) * live / kv_len
+    flops = 4 * q.shape[0] * q.shape[1] * live * q.shape[2]
+    return bound(nbytes(q, bias, out) + kv_bytes, flops)
+
+
+def report(name: str, shape: str, res: dict) -> None:
+    lib = res.get("library_ms")
+    print(f"{name:<12} {shape}: max abs err {res['max_abs_err']:.3e}; kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}", flush=True)
+
+
+def check_kernels(dev, pack: int) -> dict:
+    """Each kernel against its plain version at the main paths' shapes
+    (`pack`: the batch's cross pack length). Returns {name: {max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms}} for each kernel's
+    headline shape; the other shapes are printed."""
     import torch
+    import torch.nn.functional as F
 
     from markushgrapher_torch.ops import bias_build, flash_attention, mxu_decode
     from markushgrapher_torch.ops.relbias import mask_bias
@@ -125,12 +184,14 @@ def check_kernels(dev) -> dict:
     out["bias_build_i8"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: bias_build.encoder_position_bias_kernel_i8(*args)),
-        plain_ms=cuda_ms(lambda: bias_build.plain(*args)))
-    print(f"bias_build_i8  B={B} H={H} L={L}: bit-exact; "
-          f"kernel {out['bias_build_i8']['ms']:.3f} ms, plain "
-          f"{out['bias_build_i8']['plain_ms']:.3f} ms", flush=True)
+        plain_ms=cuda_ms(lambda: bias_build.plain(*args)),
+        library_ms=None, **bound(nbytes(*tabs, bbox, mask, got, s_got), 0))
+    report("bias_build_i8", f"B={B} H={H} L={L} (bit-exact)",
+           out["bias_build_i8"])
 
-    # K2: flash over the int8 slab, bf16 q/k/v, 25 % of keys padded
+    # K2: flash over the int8 slab, bf16 q/k/v, 25 % of keys padded. Its
+    # library yardstick: SDPA with the dequantised bias plus the key mask
+    # as a bf16 attn_mask and scale 1 (both made outside the timing)
     D = 64
     q, k, v = (torch.tensor(rng.randn(B, L, H, D).astype(np.float32) * sc,
                             device=dev).to(torch.bfloat16)
@@ -142,62 +203,92 @@ def check_kernels(dev) -> dict:
     f_got = flash_attention.flash_attention_bias_i8(*fargs)
     f_ref = flash_attention.plain(*fargs)
     torch.cuda.synchronize()
+    attn_mask = (got.float() * scales[None, :, None, None] + torch.where(
+        kmask[:, None, None, :] > 0, 0.0, -1e30)).to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     out["flash_i8"] = dict(
         max_abs_err=within("flash_i8", f_got, f_ref),
         ms=cuda_ms(lambda: flash_attention.flash_attention_bias_i8(*fargs)),
-        plain_ms=cuda_ms(lambda: flash_attention.plain(*fargs)))
-    print(f"flash_i8       B={B} H={H} L={L} D={D}: max abs err "
-          f"{out['flash_i8']['max_abs_err']:.3e}; kernel "
-          f"{out['flash_i8']['ms']:.3f} ms, plain "
-          f"{out['flash_i8']['plain_ms']:.3f} ms", flush=True)
+        plain_ms=cuda_ms(lambda: flash_attention.plain(*fargs)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask, scale=1.0)),
+        **bound(nbytes(q, k, v, got, scales, kmask, f_got),
+                4 * B * H * L * L * D))
+    report("flash_i8", f"B={B} H={H} L={L} D={D}", out["flash_i8"])
+    del attn_mask, qt, kt, vt
 
-    # K3: cross (B=8, Kp=1792, 20 % padding) and self ring (S=512, step 300)
-    B, HD = 8, H * D
+    # K3 / K4: decode attention over int4 values [-7, 7] or int8 values
+    # [-127, 127]; padding keys (and the ring's unwritten tail) have zero
+    # values and scales, masked by the bias.
+    HD = H * D
 
-    def slab(n_keys, n_valid):
-        vals = rng.randint(-7, 8, size=(B, n_keys, HD)).astype(np.int8)
+    def slab(rows, n_keys, n_valid, int4):
+        top = 8 if int4 else 128
+        vals = rng.randint(1 - top, top, size=(rows, n_keys, HD)).astype(
+            np.int8)
         vals[:, n_valid:] = 0
-        sc = rng.rand(B, H, n_keys).astype(np.float32) * 0.05
+        sc = rng.rand(rows, H, n_keys).astype(np.float32) * 0.05
         sc[:, :, n_valid:] = 0.0
-        return (mxu_decode.pack_int4(torch.tensor(vals, device=dev)),
-                torch.tensor(sc, device=dev).to(torch.bfloat16))
+        t = torch.tensor(vals, device=dev)
+        s_ = torch.tensor(sc, device=dev)
+        if int4:
+            return mxu_decode.pack_int4(t), s_.to(torch.bfloat16)
+        return t, s_
 
-    qd = torch.tensor(rng.randn(B, H, D).astype(np.float32),
-                      device=dev).to(torch.bfloat16)
-    kp, valid = 1792, 1434
-    kq, ks = slab(kp, valid)
-    vq, vs = slab(kp, valid)
-    cmask = torch.ones((B, valid), dtype=torch.int32, device=dev)
-    cmask[:, -100:] = 0
-    cbias = torch.nn.functional.pad(mask_bias(cmask)[:, :1, 0, :],
-                                    (0, kp - valid), value=-1e9)
-    cargs = (qd, kq, ks, vq, vs, cbias)
-    c_got = mxu_decode.cross_decode_mxu_int4(*cargs)
-    c_ref = mxu_decode.plain(*cargs)
-    err_c = within("decode_int4", c_got, c_ref)
+    def query(rows, n):
+        return torch.tensor(rng.randn(rows, n, D).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
 
-    step, ring = 300, 512
-    rk, rks = slab(ring, step + 1)
-    rv, rvs = slab(ring, step + 1)
-    srow = np.full((1, H, ring), np.finfo(np.float32).min, np.float32)
-    srow[:, :, :step + 1] = rng.randn(1, H, step + 1) * 0.5
-    sbias = torch.tensor(srow, device=dev)
-    sargs = (qd, rk, rks, rv, rvs, sbias)
-    err_s = within("decode_int4", mxu_decode.cross_decode_mxu_int4(*sargs),
-                   mxu_decode.plain(*sargs))
-    torch.cuda.synchronize()
-    ms_self = cuda_ms(lambda: mxu_decode.cross_decode_mxu_int4(*sargs), 50)
-    plain_self = cuda_ms(lambda: mxu_decode.plain(*sargs), 20)
-    out["decode_int4"] = dict(
-        max_abs_err=max(err_c, err_s),
-        ms=cuda_ms(lambda: mxu_decode.cross_decode_mxu_int4(*cargs), 50),
-        plain_ms=cuda_ms(lambda: mxu_decode.plain(*cargs), 20))
-    print(f"decode_int4    cross B={B} H={H} Kp={kp}: max abs err "
-          f"{err_c:.3e}; kernel {out['decode_int4']['ms']:.4f} ms, plain "
-          f"{out['decode_int4']['plain_ms']:.4f} ms", flush=True)
-    print(f"decode_int4    self  B={B} H={H} S={ring}: max abs err "
-          f"{err_s:.3e}; kernel {ms_self:.4f} ms, plain {plain_self:.4f} ms",
-          flush=True)
+    def cross_bias(rows, n_keys, n_valid):
+        cmask = torch.ones((rows, n_valid), dtype=torch.int32, device=dev)
+        cmask[:, -100:] = 0
+        return F.pad(mask_bias(cmask)[:, :1, 0, :], (0, n_keys - n_valid),
+                     value=-1e9)
+
+    def self_bias(ring, step):
+        srow = np.full((1, H, ring), np.finfo(np.float32).min, np.float32)
+        srow[:, :, :step + 1] = rng.randn(1, H, step + 1) * 0.5
+        return torch.tensor(srow, device=dev)
+
+    def run(name, kernel, plain, args, kw, iters=50):
+        got = kernel(*args, **kw)
+        err = within(name, got, plain(*args, **kw))
+        torch.cuda.synchronize()
+        return dict(max_abs_err=err,
+                    ms=cuda_ms(lambda: kernel(*args, **kw), iters),
+                    plain_ms=cuda_ms(lambda: plain(*args, **kw), 20),
+                    library_ms=None, **decode_bound(*args, got))
+
+    beams, step, ring = 5, 300, 512
+    beam_map = tuple(range(H)) * beams
+    for name, kernel, plain, int4 in (
+            ("decode_int4", mxu_decode.cross_decode_mxu_int4,
+             mxu_decode.plain_int4, True),
+            ("decode_i8", mxu_decode.cross_decode_mxu,
+             mxu_decode.plain_int8, False)):
+        # greedy cross at B=8: Kp=1792 for int4 (its first slice's shape),
+        # the batch's pack for int8; 20 % of the keys padded
+        kp = 1792 if int4 else pack
+        valid = kp * 4 // 5
+        kq, ks = slab(8, kp, valid, int4)
+        vq, vs = slab(8, kp, valid, int4)
+        cargs = (query(8, H), kq, ks, vq, vs, cross_bias(8, kp, valid))
+        out[name] = run(name, kernel, plain, cargs, {})
+        report(name, f"cross B=8 R={H} Kp={kp}", out[name])
+        # beam cross: 8 slab rows, 5 beams folded into 80 query rows
+        bq, bs = slab(8, pack, pack - 100, int4)
+        bv, bvs = slab(8, pack, pack - 100, int4)
+        bargs = (query(8, beams * H), bq, bs, bv, bvs,
+                 cross_bias(8, pack, pack - 100))
+        report(name, f"beam cross B=8 R={beams * H} Kp={pack} head_map",
+               run(name, kernel, plain, bargs, dict(head_map=beam_map)))
+        # self ring: 8 x 5 beam rows, per-head causal bias row
+        rows = 8 * beams
+        rk, rks = slab(rows, ring, step + 1, int4)
+        rv, rvs = slab(rows, ring, step + 1, int4)
+        sargs = (query(rows, H), rk, rks, rv, rvs, self_bias(ring, step))
+        report(name, f"self rows={rows} R={H} S={ring} step={step}",
+               run(name, kernel, plain, sargs, {}))
     return out
 
 
@@ -225,23 +316,37 @@ def _rel(a, b) -> float:
 
 
 @contextlib.contextmanager
-def checked_kernels(errs: dict):
+def checked_kernels(errs: dict, decode_calls: int = -1):
     """Route the model's calls of each kernel wrapper through a check: the
     wrapper and its plain version run on the same inputs, the kernel's
     output is held to the kernel tolerance (bias_build_i8: bit-exact; the
     others: TOL, on the attention output before the o-projection and the
     residual add), and the kernel's output goes on. errs[name] collects the
-    max abs error of every call."""
+    max abs error of every checked call. With decode_calls >= 0 only that
+    many decode-kernel calls are checked; later ones go to the kernel
+    alone. The plain versions launch no kernel, so the launch counts stay
+    those of the path."""
     from markushgrapher_torch.ops import bias_build, flash_attention, mxu_decode
 
-    sites = {"bias_build_i8": (bias_build, "encoder_position_bias_kernel_i8"),
-             "flash_i8": (flash_attention, "flash_attention_bias_i8"),
-             "decode_int4": (mxu_decode, "cross_decode_mxu_int4")}
-    saved = {name: getattr(mod, attr) for name, (mod, attr) in sites.items()}
+    sites = {"bias_build_i8": (bias_build, "encoder_position_bias_kernel_i8",
+                               bias_build.plain),
+             "flash_i8": (flash_attention, "flash_attention_bias_i8",
+                          flash_attention.plain),
+             "decode_int4": (mxu_decode, "cross_decode_mxu_int4",
+                             mxu_decode.plain_int4),
+             "decode_i8": (mxu_decode, "cross_decode_mxu",
+                           mxu_decode.plain_int8)}
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr, _) in sites.items()}
+    left = [decode_calls]
 
     def check(name, kernel, plain):
-        def call(*args):
-            got, ref = kernel(*args), plain(*args)
+        def call(*args, **kw):
+            if name.startswith("decode"):
+                if left[0] == 0:
+                    return kernel(*args, **kw)
+                left[0] -= 1
+            got, ref = kernel(*args, **kw), plain(*args, **kw)
             if name == "bias_build_i8":
                 if not all(bool((g == r).all()) for g, r in zip(got, ref)):
                     raise AssertionError("bias_build_i8 in the model: "
@@ -252,45 +357,60 @@ def checked_kernels(errs: dict):
             return got
         return call
 
-    for name, (mod, attr) in sites.items():
+    for name, (mod, attr, plain) in sites.items():
         errs.setdefault(name, [])
-        setattr(mod, attr, check(name, saved[name], mod.plain))
+        setattr(mod, attr, check(name, saved[name], plain))
     try:
         yield
     finally:
-        for name, (mod, attr) in sites.items():
+        for name, (mod, attr, _) in sites.items():
             setattr(mod, attr, saved[name])
 
 
-def drive_slice(ev, cfg, host: dict, dev) -> dict:
-    """The main path once through Evaluator.generate_batch with every launch
-    count zeroed just before; then the kernel path against the plain
-    versions on the same inputs:
+def drive_path(model, mt, cfg, host: dict, int4: bool, beams: int,
+               steps: int) -> dict:
+    """One path through Evaluator.generate_batch, with every launch count
+    zeroed just before and read just after; every kernel call of the
+    encode and of the first CHECKED_STEPS decode steps is held to its plain
+    version on the same inputs along the way."""
+    import torch
 
-    - every kernel call of one encode and of the first 8 decode steps, each
-      against its plain version on that call's inputs (the kernel path's
-      own layer inputs): the kernels' own error, gated;
-    - end to end (encoder states, first 8 greedy tokens): what the model
-      makes of it, printed. On random weights the 24-layer stacks amplify
-      any bf16-level difference, so these are printed beside the same
-      amplification of a half-ulp input nudge on the plain path alone, for
-      two noise seeds."""
+    from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
+    from markushgrapher_torch.ops import _build
+
+    model.int4_cross = int4
+    batch = host["input_ids"].shape[0]
+    ev = Evaluator(model, mt, EvalConfig(max_length=steps, num_beams=beams,
+                                         batch_size=batch, eos_id=-1))
+    pack, _ = cross_pack(cfg, host)
+    errs: dict = {}
+    checked = CHECKED_STEPS * 2 * cfg.vtl.num_decoder_layers
+    with checked_kernels(errs, decode_calls=checked):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ids = ev.generate_batch(host, cross_pack_len=pack)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    return dict(ids=ids, launches=launches, first_s=time.perf_counter() - t0,
+                inside={name: (max(e), len(e)) for name, e in errs.items()
+                        if e})
+
+
+def compare_to_plain(model, cfg, host: dict, dev) -> dict:
+    """The int4 greedy path end to end against the plain path (encoder
+    states, first 8 greedy tokens): what the model makes of the kernels'
+    bf16-level differences, printed, not gated. On random weights the
+    24-layer stacks amplify any such difference, so these are printed
+    beside the same amplification of a half-ulp input nudge on the plain
+    path alone, for two noise seeds."""
     import torch
 
     from markushgrapher_torch.decode.generate import greedy_generate
-    from markushgrapher_torch.ops import _build
 
-    model = ev.model
-    steps, batch = ev.cfg.max_length, host["input_ids"].shape[0]
+    model.int4_cross = True
+    steps, batch = cfg.max_seq_length_decoder, host["input_ids"].shape[0]
     pack, _ = cross_pack(cfg, host)
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    ids = ev.generate_batch(host, cross_pack_len=pack)
-    torch.cuda.synchronize()
-    out = dict(ids=ids, launches=dict(_build.LAUNCHES),
-               first_s=time.perf_counter() - t0)
-
     args = encoder_args(host, dev)
     budget = torch.full((batch,), 8, device=dev)
 
@@ -298,14 +418,10 @@ def drive_slice(ev, cfg, host: dict, dev) -> dict:
         return greedy_generate(model, enc, mask, steps, eos_id=-1,
                                cross_pack_len=pack, row_budgets=budget)
 
-    errs: dict = {}
-    with checked_kernels(errs):
-        enc_k, mask_k = model.encode(*args)
-        greedy8(enc_k, mask_k)
-
+    enc_k, mask_k = model.encode(*args)
+    ids_k = greedy8(enc_k, mask_k)
     layer0 = model.encoder.layer_0
     nudged = []
-
     model.use_kernels = False
     try:
         enc_p, mask_p = model.encode(*args)
@@ -330,28 +446,34 @@ def drive_slice(ev, cfg, host: dict, dev) -> dict:
                 (ids_n[:, :8] == ids_p[:, :8]).float().mean())))
     finally:
         model.use_kernels = True
-    first = torch.as_tensor(ids[:, :8])
-    out.update(
+    first = ids_k[:, :8]
+    return dict(
         masks_equal=bool(torch.equal(mask_k, mask_p)),
         finite=bool(torch.isfinite(enc_k.float()).all()),
-        inside={name: (max(e), len(e)) for name, e in errs.items()},
         enc_err=_rel(enc_k, enc_p), nudged=nudged,
-        match_e2e=float((first == ids_p[:, :8].cpu()).float().mean()),
-        match_dec=float((first == ids_pk[:, :8].cpu()).float().mean()))
-    return out
+        match_e2e=float((first == ids_p[:, :8]).float().mean()),
+        match_dec=float((first == ids_pk[:, :8]).float().mean()))
 
 
-def time_slice(ev, cfg, host: dict, dev, warm: bool) -> dict:
-    """Encode ms, decode ms/step and img/s of one generate_batch call."""
+def time_path(model, mt, cfg, host: dict, dev, int4: bool,
+              beams: int) -> dict:
+    """Encode ms, decode ms/step and img/s of one warm generate_batch call
+    (a 16-step run at the same batch warms it up)."""
     import torch
 
+    from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
+
+    model.int4_cross = int4
     pack, _ = cross_pack(cfg, host)
-    b, steps = host["input_ids"].shape[0], ev.cfg.max_length
-    if not warm:
-        ev.generate_batch(host, cross_pack_len=pack)
+    b, steps = host["input_ids"].shape[0], cfg.max_seq_length_decoder
+    warm = Evaluator(model, mt, EvalConfig(max_length=16, num_beams=beams,
+                                           batch_size=b, eos_id=-1))
+    warm.generate_batch(host, cross_pack_len=pack)
+    ev = Evaluator(model, mt, EvalConfig(max_length=steps, num_beams=beams,
+                                         batch_size=b, eos_id=-1))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ev.model.encode(*encoder_args(host, dev))
+    model.encode(*encoder_args(host, dev))
     torch.cuda.synchronize()
     enc_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
@@ -372,8 +494,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
     from markushgrapher_torch.config import MarkushGrapherConfig
+    from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
     from markushgrapher_torch.data.synthetic import page_batch
-    from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
     from markushgrapher_torch.models.markushgrapher import MarkushGrapherModel
     from markushgrapher_torch.ops import _build
 
@@ -393,63 +515,78 @@ def main() -> None:
     print(f"build: {_build.build_info['seconds']:.1f} s "
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
 
-    # phase 3: kernels against their plain versions
-    kres = check_kernels(dev)
-
-    # phase 4: the slice at full width, through Evaluator.generate_batch
+    # phase 3: kernels against their plain versions, at the batch's pack
     cfg = MarkushGrapherConfig()
-    steps, batch = cfg.max_seq_length_decoder, 8
+    batch = 8
+    mt = MarkushTokenizer()
+    host = page_batch(cfg, batch, SEED, mt)
+    pack, mv = cross_pack(cfg, host)
+    kres = check_kernels(dev, pack)
+
+    # phase 4: the paths at full width, through Evaluator.generate_batch
     with torch.device(dev):
         model = MarkushGrapherModel(cfg)
     model.init_weights(SEED)
+    model.to(torch.bfloat16).eval()
     n_params = sum(p.numel() for p in model.parameters())
-    ev = Evaluator(model, None, EvalConfig(max_length=steps,
-                                           batch_size=batch, eos_id=-1))
-    host = page_batch(cfg, batch, SEED, ev.mt)
-    pack, mv = cross_pack(cfg, host)
-    print(f"slice: {n_params / 1e6:.1f}M params bf16, batch {batch}, "
-          f"{steps} greedy steps, valid encoder max {mv} -> cross pack "
-          f"{pack}", flush=True)
-    res = drive_slice(ev, cfg, host, dev)
-    launches, ids = res["launches"], res["ids"]
-    want = {"bias_build_i8": 1, "flash_i8": cfg.vtl.num_layers,
-            "decode_int4": 2 * cfg.vtl.num_decoder_layers * steps}
-    print(f"launches on the main path: {launches} (expected {want}); "
-          f"first run {res['first_s']:.2f} s", flush=True)
-    for r in range(2):
-        print(f"row {r}: {ev.mt.decode(ids[r][:40])[:160]!r}", flush=True)
-    for name, (err, n) in res["inside"].items():
-        print(f"inside the model, {name} vs plain on the same inputs: "
-              f"{n} calls (one encode, 8 decode steps), max abs err "
-              f"{err:.3e}, all within tolerance", flush=True)
-    print(f"end to end: encoder states rel L2 {res['enc_err']:.3e}, first 8 "
-          f"greedy tokens match {res['match_e2e']:.3f}, decode alone on the "
-          f"kernel path's encoder states {res['match_dec']:.3f}", flush=True)
-    for seed, err, match in res["nudged"]:
+    print(f"slice: {n_params / 1e6:.1f}M params bf16, batch {batch}, valid "
+          f"encoder max {mv} -> cross pack {pack}", flush=True)
+    layers = cfg.vtl.num_decoder_layers
+    launches = {}
+    for name, int4, beams, steps in PATHS:
+        res = drive_path(model, mt, cfg, host, int4, beams, steps)
+        ids = res["ids"]
+        dec = "decode_int4" if int4 else "decode_i8"
+        want = {"bias_build_i8": 1, "flash_i8": cfg.vtl.num_layers,
+                "decode_int4": 0, "decode_i8": 0}
+        want[dec] = 2 * layers * steps
+        print(f"{name}: {steps} steps, launches {res['launches']} (expected "
+              f"{want}); first run {res['first_s']:.2f} s", flush=True)
+        for kname, (err, n) in res["inside"].items():
+            print(f"  inside the model, {kname} vs plain on the same inputs: "
+                  f"{n} calls (the encode, {CHECKED_STEPS} decode steps), "
+                  f"max abs err {err:.3e}, all within tolerance", flush=True)
+        if res["launches"] != want:
+            raise AssertionError(f"{name}: launch counts {res['launches']} "
+                                 f"!= {want}")
+        if ids.shape != (batch, steps) or ids.min() < 0 \
+                or ids.max() >= cfg.vtl.vocab_size:
+            raise AssertionError(f"{name}: bad ids {ids.shape} "
+                                 f"[{ids.min()}, {ids.max()}]")
+        if set(res["inside"]) != {"bias_build_i8", "flash_i8", dec}:
+            raise AssertionError(f"{name}: kernels checked inside the model: "
+                                 f"{sorted(res['inside'])}")
+        for r in range(2):
+            print(f"  row {r}: {mt.decode(ids[r][:40])[:160]!r}", flush=True)
+        for kname, n in res["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    e2e = compare_to_plain(model, cfg, host, dev)
+    print(f"greedy_int4 end to end vs the plain path: encoder states rel L2 "
+          f"{e2e['enc_err']:.3e}, first 8 greedy tokens match "
+          f"{e2e['match_e2e']:.3f}, decode alone on the kernel path's encoder "
+          f"states {e2e['match_dec']:.3f}", flush=True)
+    for seed, err, match in e2e["nudged"]:
         print(f"control, plain path vs itself with a half-ulp nudge of layer "
               f"0's input (noise seed {seed}): encoder states rel L2 "
               f"{err:.3e}, first 8 greedy tokens match {match:.3f}",
               flush=True)
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if ids.shape != (batch, steps) or ids.min() < 0 \
-            or ids.max() >= cfg.vtl.vocab_size:
-        raise AssertionError(f"bad ids {ids.shape} [{ids.min()}, "
-                             f"{ids.max()}]")
-    if not (res["masks_equal"] and res["finite"]):
+    if not (e2e["masks_equal"] and e2e["finite"]):
         raise AssertionError("encoder mask differs or states not finite")
-    if set(res["inside"]) != set(KERNELS):
-        raise AssertionError(f"kernels checked inside the model: "
-                             f"{sorted(res['inside'])}")
 
-    # phase 5: timing at batch 8 and 48 (warm)
-    for b in (8, 48):
-        hb = host if b == batch else page_batch(cfg, b, SEED + 1, ev.mt)
-        t = time_slice(ev, cfg, hb, dev, warm=b == batch)
-        print(f"timing b{b}: encode {t['encode_ms']:.1f} ms, decode "
-              f"{t['decode_ms_per_step']:.3f} ms/step, {t['img_per_s']:.3f} "
-              f"img/s (greedy-{steps}, cross pack {t['cross_pack']}, peak "
-              f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
+    # phase 5: timing (warm), 512 steps, eos never firing
+    hosts = {8: host}
+    for label, int4, beams, sizes in (("greedy int4", True, 1, (8, 48)),
+                                      ("beam-5 int4", True, 5, (8, 16)),
+                                      ("greedy int8", False, 1, (8, 48))):
+        for b in sizes:
+            if b not in hosts:
+                hosts[b] = page_batch(cfg, b, SEED + 1, mt)
+            t = time_path(model, mt, cfg, hosts[b], dev, int4, beams)
+            print(f"timing {label} b{b}: encode {t['encode_ms']:.1f} ms, "
+                  f"decode {t['decode_ms_per_step']:.3f} ms/step, "
+                  f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
+                  f"steps, cross pack {t['cross_pack']}, peak "
+                  f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **kres[name])

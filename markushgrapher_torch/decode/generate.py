@@ -1,18 +1,23 @@
-"""Batched greedy generation (port of `markushgrapher_tpu.decode.generate`).
+"""Batched greedy and beam-search generation (port of
+`markushgrapher_tpu.decode.generate`).
 
 The encoder runs once per batch; decoding is a Python loop over steps
-against preallocated int4 KV caches, with early exit once every row has
-finished. Beam search is not ported yet (ROADMAP queue 1 item 6).
+against preallocated quantised KV caches (the model's KV scheme, int4 or
+int8), with early exit once every row has finished (greedy) or the beam
+search halts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from markushgrapher_torch.models.t5 import reorder_self_rings
 from markushgrapher_torch.ops.relbias import mask_bias
+
+NEG_INF = -1e9
 
 
 def pack_encoder_for_cross(enc: torch.Tensor, enc_mask: torch.Tensor,
@@ -29,6 +34,21 @@ def pack_encoder_for_cross(enc: torch.Tensor, enc_mask: torch.Tensor,
     return enc_p[:, :packed_len], mask_p[:, :packed_len]
 
 
+def _prepare(model, enc, enc_mask, max_length, cross_pack_len, self_rows):
+    """Pack the encoder states, build the caches ([B]-row cross slabs,
+    `self_rows` self rings), the int8 decode weights, the causal decoder
+    bias and the cross mask bias [B, 1, Kp]."""
+    if cross_pack_len is not None and cross_pack_len < enc.shape[1]:
+        enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
+    caches = model.init_cache(enc, max_length, self_rows=self_rows)
+    qw = model.quantize_weights()
+    bias_full = model.full_decoder_bias(max_length)
+    kp = caches[0]["cross_k_s"].shape[-1]
+    cross_bias = F.pad(mask_bias(enc_mask)[:, :1, 0, :],
+                       (0, kp - enc_mask.shape[1]), value=NEG_INF)
+    return caches, qw, bias_full, cross_bias
+
+
 @torch.no_grad()
 def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                     max_length: int, eos_id: int = 1, pad_id: int = 0,
@@ -38,21 +58,15 @@ def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                     ) -> torch.Tensor:
     """Returns generated ids [B, max_length] (pad after EOS).
 
-    Serves int4 KV caches with int8 weights (the reference's
-    quant_cross_kv + quant_weights + int4_cross path; the other KV layouts
-    are ROADMAP queue 2). row_budgets ([B] ints, optional) caps each row's
+    Serves the model's quantised KV scheme with int8 weights (the
+    reference's quant_cross_kv + quant_weights path, int4 or int8 KV by the
+    model's `int4_cross`). row_budgets ([B] ints, optional) caps each row's
     tokens; positions past a row's budget are pad, and a budget of 0 emits
     only pad."""
     batch = enc.shape[0]
     dev = enc.device
-    if cross_pack_len is not None and cross_pack_len < enc.shape[1]:
-        enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
-    caches = model.init_cache(enc, max_length)
-    qw = model.quantize_weights()
-    bias_full = model.full_decoder_bias(max_length)
-    kp = caches[0]["cross_k_q4"].shape[1]
-    cross_bias = F.pad(mask_bias(enc_mask)[:, :1, 0, :],
-                       (0, kp - enc_mask.shape[1]), value=-1e9)
+    caches, qw, bias_full, cross_bias = _prepare(
+        model, enc, enc_mask, max_length, cross_pack_len, None)
     budgets = None if row_budgets is None else torch.as_tensor(
         row_budgets, device=dev)
 
@@ -77,18 +91,129 @@ def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
     return out
 
 
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top k along the last axis, ties to the lower index (the order
+    `jax.lax.top_k` gives; `torch.topk` leaves ties unordered)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather along axis 1: x [B, N, ...], idx [B, M] -> [B, M, ...]."""
+    return torch.gather(x, 1, idx.reshape(
+        idx.shape + (1,) * (x.ndim - 2)).expand(idx.shape + x.shape[2:]))
+
+
+@torch.no_grad()
+def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
+                  max_length: int, num_beams: int = 5, eos_id: int = 1,
+                  pad_id: int = 0, start_id: int = 0,
+                  length_penalty: float = 1.0, early_stopping: bool = False,
+                  cross_pack_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search with HF `_beam_search` semantics, step for step as the
+    reference's `beam_generate`: per step the top 2K of the K*V
+    continuations are taken; continuations that hit a stopping criterion
+    (EOS or max length) and rank in the top K merge into a running finished
+    set of K hypotheses (scores normalised by generated_len **
+    length_penalty); the best K non-finished continuations carry the live
+    search. The loop stops when no live beam can beat the worst finished
+    hypothesis (the HF early-stop heuristic), every candidate hits a
+    stopping criterion, or (early_stopping=True) every finished slot is
+    filled. Returns (ids [B, max_length], scores [B]) of the best finished
+    hypothesis.
+
+    The cross slabs keep one row per sample and the self rings B*K rows;
+    after each step the rings' live prefix is reordered by parent beam."""
+    batch = enc.shape[0]
+    dev = enc.device
+    k = num_beams
+    caches, qw, bias_full, cross_bias = _prepare(
+        model, enc, enc_mask, max_length, cross_pack_len, batch * k)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    # beam 0 active, the others muted at step 0 so all beams start identical
+    run_scores = torch.full((batch, k), NEG_INF, **f32)
+    run_scores[:, 0] = 0.0
+    run_seqs = torch.full((batch, k, max_length), pad_id, dtype=torch.long,
+                          device=dev)
+    fin_scores = torch.full((batch, k), NEG_INF, **f32)
+    fin_seqs = run_seqs.clone()
+    fin_flags = torch.zeros((batch, k), dtype=torch.bool, device=dev)
+    heur_unsat = torch.ones(batch, dtype=torch.bool, device=dev)
+    # ranks 0..K-1 of the 2K sorted candidates are eligible to finish
+    top_k_mask = (torch.arange(2 * k, device=dev) < k)[None]
+    row0 = torch.arange(batch, device=dev)[:, None] * k
+    tok = torch.full((batch * k, 1), start_id, dtype=torch.long, device=dev)
+
+    for step in range(max_length):
+        logits = model.decode_step(tok, caches, step, bias_full, cross_bias,
+                                   qw)
+        logp = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
+        vocab = logp.shape[-1]
+        acc = run_scores[..., None] + logp.reshape(batch, k, vocab)
+        top2k, idx = _top_k(acc.reshape(batch, k * vocab), 2 * k)
+        cand_beam = idx // vocab                              # [B, 2K]
+        cand_tok = idx % vocab
+        cand_seqs = _take(run_seqs, cand_beam)                # [B, 2K, L]
+        cand_seqs[:, :, step] = cand_tok
+        hits = (cand_tok == eos_id) | (step + 1 >= max_length)
+
+        # live beams for the next step: the best K non-finished
+        # continuations (finished ones muted by -1e9, kept in the score)
+        live_scores, live_idx = _top_k(top2k + hits.to(torch.float32)
+                                       * NEG_INF, k)
+        run_seqs = _take(cand_seqs, live_idx)
+        tok = _take(cand_tok, live_idx).reshape(-1, 1)
+        parent = (_take(cand_beam, live_idx) + row0).reshape(-1)
+        reorder_self_rings(caches, parent, step + 1)
+
+        # finished-set update: only top-K-ranked candidates that hit a
+        # stopping criterion finish; scores normalised by generated length
+        length = torch.tensor(step + 1, **f32) ** length_penalty
+        did_finish = hits & top_k_mask
+        norm = top2k / length + (~did_finish).to(torch.float32) * NEG_INF
+        if early_stopping:
+            norm = norm + fin_flags.all(dim=-1, keepdim=True).to(
+                torch.float32) * NEG_INF
+        norm = norm + (~heur_unsat)[:, None].to(torch.float32) * NEG_INF
+        m_scores = torch.cat([fin_scores, norm], dim=1)       # [B, 3K]
+        fin_scores, m_idx = _top_k(m_scores, k)
+        fin_seqs = _take(torch.cat([fin_seqs, cand_seqs], dim=1), m_idx)
+        fin_flags = _take(torch.cat([fin_flags, did_finish], dim=1), m_idx)
+        run_scores = live_scores
+
+        # HF early-stop heuristic (early_stopping=False branch): can the
+        # best live beam still beat the worst finished hypothesis?
+        best_possible = run_scores[:, :1] / length
+        worst_fin = torch.where(
+            fin_flags, fin_scores.min(dim=1, keepdim=True).values,
+            torch.tensor(NEG_INF, **f32))
+        heur_unsat = heur_unsat & (best_possible > worst_fin).any(dim=-1)
+        open_beam = not (early_stopping and bool(fin_flags.all()))
+        if not (bool(heur_unsat.any()) and open_beam
+                and not bool(hits.all())):
+            break
+    # the merged top K keeps descending score order: slot 0 is the best
+    return fin_seqs[:, 0], fin_scores[:, 0]
+
+
 @torch.no_grad()
 def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
              num_beams: int = 1, eos_id: int = 1, pad_id: int = 0,
              start_id: int = 0,
              cross_pack_len: Optional[int] = None) -> torch.Tensor:
-    """Encode + greedy decode. `batch` holds input_ids / bbox /
-    attention_mask and the pixel inputs the architecture variant needs."""
-    if num_beams > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet: ROADMAP queue 1 item 6")
+    """Encode + decode (greedy, or beam search for num_beams > 1). `batch`
+    holds input_ids / bbox / attention_mask and the pixel inputs the
+    architecture variant needs."""
     enc, enc_mask = model.encode(
         batch["input_ids"], batch["bbox"], batch["attention_mask"],
         batch.get("pixel_values"), batch.get("ocsr_pixel_values"))
-    return greedy_generate(model, enc, enc_mask, max_length, eos_id, pad_id,
-                           start_id, cross_pack_len=cross_pack_len)
+    if num_beams <= 1:
+        return greedy_generate(model, enc, enc_mask, max_length, eos_id,
+                               pad_id, start_id,
+                               cross_pack_len=cross_pack_len)
+    ids, _ = beam_generate(model, enc, enc_mask, max_length, num_beams,
+                           eos_id, pad_id, start_id,
+                           cross_pack_len=cross_pack_len)
+    return ids

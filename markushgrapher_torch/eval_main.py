@@ -2,17 +2,19 @@
 `python -m markushgrapher_torch.eval_main <config.yaml>`.
 
 Reads the same YAML keys as `markushgrapher_tpu.eval_main`, builds the model
-and dataset, runs batched greedy generation on the port and writes
-`predictions_<N>.jsonl` / `scores_<N>.json` under `<output_dir>/predictions`.
+and dataset, runs batched generation on the port (beam 5 when `beam_search:
+true`, as the reference's predict config) and writes `predictions_<N>.jsonl`
+/ `scores_<N>.json` under `<output_dir>/predictions`.
 
 Only the serving path is ported, so the YAML must set `quant_kv`,
-`quant_weights`, `int4_cross`, `bias_int8` and `bias_kernel` to true (the
-reference's defaults leave them off and reach the float-bias flash encoder,
-which is not ported: ROADMAP queue 2). `beam_search: true` is refused
-(ROADMAP queue 1 item 6). Weights: `model_name_or_path` may name an `.npz`
-of the flattened flax parameter tree ("/"-joined paths, through
-`convert.from_jax`); otherwise the model runs from a seeded random init.
-Orbax checkpoint restore is not ported yet.
+`quant_weights`, `bias_int8` and `bias_kernel` to true (the reference's
+defaults leave them off and reach the float-bias flash encoder and the
+float-KV decode, which are not ported: ROADMAP queue 2). `int4_cross`
+picks the KV scheme: int4 when true, else int8. Runs on the CUDA device
+unless the caller passes `device="cpu"`. Weights: `model_name_or_path` may
+name an `.npz` of the flattened flax parameter tree ("/"-joined paths,
+through `convert.from_jax`); otherwise the model runs from a seeded random
+init. Orbax checkpoint restore is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from markushgrapher_tpu.arguments import build_model_config, parse_yaml_config
-from markushgrapher_tpu.data.collator import DataCollator
-from markushgrapher_tpu.data.dataset import DatasetRegistry
-from markushgrapher_tpu.data.markush_tokenizer import MarkushTokenizer
+from markushgrapher_torch.arguments import build_model_config, parse_yaml_config
+from markushgrapher_torch.data.collator import DataCollator
+from markushgrapher_torch.data.dataset import DatasetRegistry
+from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
 from markushgrapher_torch.convert.from_jax import params_from_jax
 from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
 from markushgrapher_torch.models.markushgrapher import MarkushGrapherModel
@@ -39,8 +41,8 @@ logger = logging.getLogger(__name__)
 REMOVE_STEREO = True
 FIX_CXSMILES = True
 INPUT_ENCODING_TRAINING_DATASET = "mdu_3005"
-SERVING_FLAGS = ("quant_kv", "quant_weights", "int4_cross", "bias_int8",
-                 "bias_kernel")
+SERVING_FLAGS = ("quant_kv", "quant_weights", "bias_int8", "bias_kernel")
+BEAMS = 5                       # the reference's predict mode (beam_search)
 
 
 def require_serving_flags(margs) -> None:
@@ -48,8 +50,8 @@ def require_serving_flags(margs) -> None:
     if off:
         raise ValueError(
             f"markushgrapher_torch serves only the int8-bias flash encoder "
-            f"and int4-KV / int8-weight decode; set {off} to true in the "
-            "config (the other paths are ROADMAP queue 2)")
+            f"and the int4- or int8-KV, int8-weight decode; set {off} to "
+            "true in the config (the other paths are ROADMAP queue 2)")
 
 
 def load_npz_tree(path: str) -> Dict:
@@ -68,7 +70,7 @@ def load_npz_tree(path: str) -> Dict:
 def build_model(margs, dargs, device) -> MarkushGrapherModel:
     cfg = build_model_config(margs, dargs)
     with torch.device(device):
-        model = MarkushGrapherModel(cfg)
+        model = MarkushGrapherModel(cfg, int4_cross=margs.int4_cross)
     path = margs.model_name_or_path
     if path and path.endswith(".npz") and os.path.isfile(path):
         logger.info("loading weights %s", path)
@@ -87,10 +89,11 @@ def main(config_path: Optional[str] = None,
     config_path = config_path or sys.argv[1]
     margs, dargs, targs = parse_yaml_config(config_path)
     require_serving_flags(margs)
-    if margs.beam_search:
-        raise NotImplementedError(
-            "beam search is not ported yet: ROADMAP queue 1 item 6")
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = device or "cuda"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "markushgrapher_torch.eval_main runs on a CUDA device and found "
+            "none; pass device='cpu' to run the plain versions on the CPU")
     model = build_model(margs, dargs, device)
 
     registry = DatasetRegistry.from_yaml(dargs.datasets_config)
@@ -109,6 +112,7 @@ def main(config_path: Optional[str] = None,
 
     eval_cfg = EvalConfig(
         max_length=dargs.max_seq_length_decoder,
+        num_beams=BEAMS if margs.beam_search else 1,
         batch_size=targs.per_device_eval_batch_size,
         max_eval_samples=dargs.max_eval_samples,
         remove_stereo=REMOVE_STEREO, fix_cxsmiles=FIX_CXSMILES,

@@ -1,12 +1,13 @@
-"""Batched evaluation: dataset -> batched greedy generation on the port ->
-decode -> chemistry scoring -> artifacts (port of
+"""Batched evaluation: dataset -> batched generation on the port (greedy or
+beam search) -> decode -> chemistry scoring -> artifacts (port of
 `markushgrapher_tpu.eval_pipeline`).
 
 Writes the reference's artifacts: `predictions_<N>.jsonl` rows {id, cxsmiles,
 cxsmiles_opt, gt_cxsmiles, gt_cxsmiles_opt, prediction_text} and
-`scores_<N>.json`, with a prediction pickle cache keyed on the decode config
-and a weights fingerprint. Scoring uses the shared `markushgrapher_tpu.chem`
-modules. Greedy only; length-bucketed batching is not ported yet.
+`scores_<N>.json`, with a prediction pickle cache keyed on the decode config,
+the KV scheme and a weights fingerprint. Scoring uses the port's own copies
+of the chemistry modules (`markushgrapher_torch.chem`). Length-bucketed
+batching is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from markushgrapher_tpu.chem import cxsmiles as cx_lib
-from markushgrapher_tpu.chem.abbreviation import Abbreviation, fix_cxsmiles
-from markushgrapher_tpu.chem.evaluation import aggregate_scores, score_sample
-from markushgrapher_tpu.data.collator import DataCollator
-from markushgrapher_tpu.data.markush_tokenizer import MarkushTokenizer
+from markushgrapher_torch.chem import cxsmiles as cx_lib
+from markushgrapher_torch.chem.abbreviation import Abbreviation, fix_cxsmiles
+from markushgrapher_torch.chem.evaluation import aggregate_scores, score_sample
+from markushgrapher_torch.data.collator import DataCollator
+from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
 from markushgrapher_torch.decode.generate import generate
 from markushgrapher_torch.models.markushgrapher import encoder_valid_max
 
@@ -41,7 +42,7 @@ MODEL_INPUTS = ("input_ids", "bbox", "attention_mask", "pixel_values",
 @dataclass
 class EvalConfig:
     max_length: int = 512
-    num_beams: int = 1           # beam search: ROADMAP queue 1 item 6
+    num_beams: int = 1           # reference predict: 5 (beam_search flag)
     batch_size: int = 8
     max_eval_samples: Optional[int] = None
     remove_stereo: bool = False
@@ -69,8 +70,9 @@ class Evaluator:
                  cfg: EvalConfig, abbreviation: Optional[Abbreviation] = None,
                  input_tokenizer: Optional[MarkushTokenizer] = None):
         """`model` is a `markushgrapher_torch` MarkushGrapherModel holding
-        its weights on the device it serves from; it serves int4 KV caches
-        with int8 decode weights. markush_tokenizer (default: the standard
+        its weights on the device it serves from; it serves its quantised
+        KV scheme (`model.int4_cross`: int4, else int8) with int8 decode
+        weights. markush_tokenizer (default: the standard
         `MarkushTokenizer()`) decodes and parses predictions;
         input_tokenizer (default: the same) parses ground-truth
         annotations."""
@@ -114,15 +116,17 @@ class Evaluator:
     # -- the loop -----------------------------------------------------------
 
     def _cache_digest(self) -> str:
-        """Key the prediction cache on the decode config and a weights
-        fingerprint, so stale predictions are never re-scored."""
+        """Key the prediction cache on the decode config, the KV scheme
+        and a weights fingerprint, so stale predictions are never
+        re-scored."""
         if self._params_fp is None:
             self._params_fp = float(sum(
                 p.detach().to(torch.float32).sum().item()
                 for p in self.model.parameters()))
         cfg = self.cfg
+        kv = "int4" if self.model.int4_cross else "int8"
         key = (f"torch;beams={cfg.num_beams};len={cfg.max_length};"
-               f"xp={cfg.cross_pack_len};"
+               f"kv={kv};xp={cfg.cross_pack_len};"
                f"bf16={cfg.bf16_params};fp={self._params_fp:.6e}")
         return hashlib.md5(key.encode()).hexdigest()[:10]
 
@@ -175,7 +179,7 @@ class Evaluator:
                 "gt_annotation": dataset.source[idx].get("annotation", ""),
             }
             if idx < cfg.save_visualizations:
-                from markushgrapher_tpu.data.dataset import resize_image
+                from markushgrapher_torch.data.dataset import resize_image
 
                 meta["cells"] = list(dataset.source[idx].get("cells") or [])
                 img = dataset.source[idx].get("page_image")
@@ -227,7 +231,7 @@ class Evaluator:
         })
         if len(predictions) <= self.cfg.save_visualizations:
             try:
-                from markushgrapher_tpu.utils.viz import display_eval_sample
+                from markushgrapher_torch.utils.viz import display_eval_sample
 
                 viz_dir = os.path.join(self.cfg.output_dir, "visualization")
                 os.makedirs(viz_dir, exist_ok=True)

@@ -4,8 +4,10 @@ decoder; port of `markushgrapher_tpu.models.markushgrapher` for serving.
 `encode` serves the VTL encoder one way, at every fused length: one int8
 [B, H, L, L] bias slab from `ops.bias_build` shared by every layer's
 `ops.flash_attention` (the reference's flash + bias_int8 + bias_kernel
-branch). The decode side serves int4 KV caches with int8 weights only. The
-float-bias flash branch and `encoder_pack_len` are not ported (ROADMAP).
+branch). The decode side serves quantised KV caches (int4 or int8, the
+reference's `int4_cross` flag) with int8 weights. The float-bias flash
+branch, the float-KV decode and `encoder_pack_len` are not ported
+(ROADMAP).
 
 `use_kernels=False` makes the model call each kernel's plain PyTorch version
 directly on any device: the reference path that the card's kernels are held
@@ -108,10 +110,13 @@ class MLPProjector(nn.Module):
 
 
 class MarkushGrapherModel(nn.Module):
-    def __init__(self, cfg: MarkushGrapherConfig, use_kernels: bool = True):
+    def __init__(self, cfg: MarkushGrapherConfig, use_kernels: bool = True,
+                 int4_cross: bool = True):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        # KV scheme of the decode caches: int4 (True) or int8 (False)
+        self.int4_cross = int4_cross
         vtl = cfg.vtl
         nb, heads = vtl.relative_attention_num_buckets, vtl.num_heads
         self.shared_embedding = nn.Parameter(
@@ -217,8 +222,12 @@ class MarkushGrapherModel(nn.Module):
     # -- stepwise decode -----------------------------------------------------
 
     @torch.no_grad()
-    def init_cache(self, enc: torch.Tensor, max_len: int):
-        return self.decoder.init_cache(enc, max_len)
+    def init_cache(self, enc: torch.Tensor, max_len: int,
+                   self_rows: Optional[int] = None):
+        """Per-layer caches: cross slabs of enc's [B] rows, self rings of
+        `self_rows` rows (B * beams under beam search; default B)."""
+        return self.decoder.init_cache(enc, max_len, self.int4_cross,
+                                       self_rows or enc.shape[0])
 
     @torch.no_grad()
     def quantize_weights(self) -> Dict:
@@ -244,8 +253,9 @@ class MarkushGrapherModel(nn.Module):
     def decode_step(self, token_ids: torch.Tensor, caches, step: int,
                     bias_full: torch.Tensor, cross_bias: torch.Tensor,
                     qw: Dict) -> torch.Tensor:
-        """token_ids [B, 1]; cross_bias [B, 1, Kp] f32 (padding keys at
-        -1e9). Returns float32 logits [B, 1, V]."""
+        """token_ids [rows, 1]; cross_bias [B, 1, Kp] f32 over the cross
+        slabs' rows (padding keys at -1e9). Returns float32 logits
+        [rows, 1, V]."""
         x = self.embed_tokens(token_ids)
         x = self.decoder.decode_step(x, caches, step, bias_full[:, :, step],
                                      cross_bias, qw["layers"],

@@ -7,16 +7,25 @@ the flax tree (`layer_{i}`, `ln_attn`, `attn.{q,k,v,o}`, ...) so
 `convert.from_jax` maps one onto the other; weights use torch's Linear
 layout [out, in].
 
-The decode step serves the int4-KV + int8-weight path only:
-  - cross K/V slabs quantised once per generate call (per-(token, head)
-    int4 with bf16 scales, `pack_int4` column split, key axis padded to a
-    256-multiple);
-  - separate int4 K and V self rings [B, S, H*D/2] with bf16 scales
-    [B, H, S], written in place each step (the reference's greedy path keeps
-    one combined k||v ring, a TPU layout choice; the math is the same);
-  - every decode attention through `ops.mxu_decode.cross_decode_mxu_int4`;
-  - every decode-step matmul against int8 weights dequantised to the compute
-    dtype, scaled per output channel afterwards.
+The decode step serves quantised KV caches with int8 weights, under one of
+two KV schemes (the reference's `int4_cross` flag):
+  - int8 (the reference's default quantised KV): cross K/V slabs
+    [B, Kp, H*D] int8 with f32 scales [B, H, Kp]; self rings of the same
+    layout [rows, S, H*D] / [rows, H, S]; every decode attention through
+    `ops.mxu_decode.cross_decode_mxu`;
+  - int4: the same slabs and rings nibble-packed (`pack_int4` column split,
+    [.., H*D/2]) with bf16 scales; every decode attention through
+    `ops.mxu_decode.cross_decode_mxu_int4`. The rings are separate K and V
+    tensors (the reference's greedy path keeps one combined k||v ring, a
+    TPU layout choice; the math is the same).
+Both quantise per (token, head); the cross key axis is padded to a
+256-multiple (zero scales, masked by the -1e9 cross bias). The self rings
+are written in place at each step. Cross slabs keep one row per sample
+while the self rings carry `self_rows` rows (batch * beams under beam
+search): the beam cross folds the beams into the kernel's query rows with a
+`head_map`, so every beam of a sample reads its shared slab in one pass.
+Every decode-step matmul runs against int8 weights dequantised to the
+compute dtype, scaled per output channel afterwards.
 """
 
 from __future__ import annotations
@@ -30,6 +39,15 @@ from torch import nn
 from markushgrapher_torch.ops import flash_attention, mxu_decode
 
 Cache = Dict[str, torch.Tensor]
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 of [..., D]: values in
+    [-127, 127], float32 scales max|t| / 127 of shape [...]."""
+    tf = t.to(torch.float32)
+    scale = tf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.round(tf / scale).to(torch.int8)
+    return q, scale[..., 0]
 
 
 def quantize_kv4(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,6 +168,20 @@ class Encoder(nn.Module):
         return self.final_ln(x)
 
 
+def reorder_self_rings(caches: List[Cache], parent: torch.Tensor,
+                       live: int) -> None:
+    """Beam reorder of every layer's self rings, in place: ring row i takes
+    row parent[i]'s live prefix [0, live). Positions past it are still the
+    unwritten zeros in every row, so reordering them would change nothing
+    (the reference's whole-ring copy-on-write with one segment)."""
+    for cache in caches:
+        for name, ring in cache.items():
+            if name.startswith("self_"):
+                # values [rows, S, width], scales [rows, H, S]
+                prefix = ring.narrow(2 if name.endswith("_s") else 1, 0, live)
+                prefix.copy_(prefix.index_select(0, parent))
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, num_heads, d_kv, d_ff, ff_proj="relu",
                  eps=1e-6):
@@ -162,29 +194,33 @@ class DecoderLayer(nn.Module):
         self.ln_ff = RMSNorm(d_model, eps)
         self.ff = FeedForward(d_model, d_ff, ff_proj)
 
-    def init_cache(self, enc: torch.Tensor, max_len: int) -> Cache:
-        """Quantise the cross K/V once; allocate empty int4 self rings."""
+    def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
+                   rows: int) -> Cache:
+        """Quantise the cross K/V once ([B] rows); allocate empty self rings
+        of `rows` rows."""
         batch, kv_len, _ = enc.shape
-        hd = self.num_heads * self.d_kv
+        heads = self.num_heads
+        hd = heads * self.d_kv
         dev = enc.device
-        cache = {
-            "self_k_q4": torch.zeros((batch, max_len, hd // 2),
-                                     dtype=torch.int8, device=dev),
-            "self_v_q4": torch.zeros((batch, max_len, hd // 2),
-                                     dtype=torch.int8, device=dev),
-            "self_k_s": torch.zeros((batch, self.num_heads, max_len),
-                                    dtype=torch.bfloat16, device=dev),
-            "self_v_s": torch.zeros((batch, self.num_heads, max_len),
-                                    dtype=torch.bfloat16, device=dev),
-        }
+        width, sdt, quant = ((hd // 2, torch.bfloat16, quantize_kv4)
+                             if int4_cross else
+                             (hd, torch.float32, quantize_kv))
+        suffix = "_q4" if int4_cross else "_q"
+        cache = {}
+        for kind in ("k", "v"):
+            cache[f"self_{kind}{suffix}"] = torch.zeros(
+                (rows, max_len, width), dtype=torch.int8, device=dev)
+            cache[f"self_{kind}_s"] = torch.zeros(
+                (rows, heads, max_len), dtype=sdt, device=dev)
         kpad = (-kv_len) % 256
         for name, lin in (("cross_k", self.cross_attn.k),
                           ("cross_v", self.cross_attn.v)):
-            q, s = quantize_kv4(self.cross_attn.split(lin(enc)))
+            q, s = quant(self.cross_attn.split(lin(enc)))
             q = F.pad(q.reshape(batch, kv_len, hd), (0, 0, 0, kpad))
-            cache[name + "_q4"] = mxu_decode.pack_int4(q)
+            cache[name + suffix] = (mxu_decode.pack_int4(q) if int4_cross
+                                    else q)
             cache[name + "_s"] = F.pad(s, (0, 0, 0, kpad)).transpose(
-                1, 2).to(torch.bfloat16).contiguous()
+                1, 2).to(sdt).contiguous()
         return cache
 
     def quantize_weights(self) -> Dict[str, torch.Tensor]:
@@ -211,35 +247,63 @@ class DecoderLayer(nn.Module):
             mid = F.relu(qlinear(h, qw["wi_q"], qw["wi_s"]))
         return qlinear(mid, qw["wo_q"], qw["wo_s"])
 
+    def _write_ring(self, cache: Cache, step: int, k_new: torch.Tensor,
+                    v_new: torch.Tensor) -> None:
+        """Quantise this step's K/V rows [rows, 1, H, Dk] into the self
+        rings at position `step`, in place."""
+        rows = k_new.shape[0]
+        hd = self.num_heads * self.d_kv
+        int4 = "self_k_q4" in cache
+        for kind, t in (("k", k_new), ("v", v_new)):
+            tq, ts = (quantize_kv4 if int4 else quantize_kv)(t)
+            tq = tq.reshape(rows, hd)
+            if int4:
+                cache[f"self_{kind}_q4"][:, step] = mxu_decode.pack_int4(tq)
+            else:
+                cache[f"self_{kind}_q"][:, step] = tq
+            scales = cache[f"self_{kind}_s"]
+            scales[:, :, step] = ts[:, 0].to(scales.dtype)
+
+    def _attend_fn(self, cache: Cache, use_kernels: bool):
+        if "self_k_q4" in cache:
+            return (mxu_decode.cross_decode_mxu_int4 if use_kernels
+                    else mxu_decode.plain_int4), "_q4"
+        return (mxu_decode.cross_decode_mxu if use_kernels
+                else mxu_decode.plain_int8), "_q"
+
     def decode_step(self, x: torch.Tensor, cache: Cache, step: int,
                     self_bias_row: torch.Tensor, cross_bias: torch.Tensor,
                     qw: Dict[str, torch.Tensor],
                     use_kernels: bool = True) -> torch.Tensor:
-        """x [B, 1, D]; self_bias_row [1, H, S] f32 (causal row); cross_bias
-        [B, 1, Kp] f32. Writes this step's K/V into the rings in place."""
-        attend = (mxu_decode.cross_decode_mxu_int4 if use_kernels
-                  else mxu_decode.plain)
-        batch = x.shape[0]
-        hd = self.num_heads * self.d_kv
+        """x [rows, 1, D]; self_bias_row [1, H, S] f32 (causal row);
+        cross_bias [B, 1, Kp] f32 over the [B]-row cross slabs, where
+        rows = B * beams. Writes this step's K/V into the rings in place."""
+        attend, suffix = self._attend_fn(cache, use_kernels)
+        rows = x.shape[0]
+        heads, dk = self.num_heads, self.d_kv
+        hd = heads * dk
         h = self.ln_self(x)
-        qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])            # [B, 1, 3*HD]
+        qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])            # [rows,1,3HD]
         q, k_new, v_new = (self.self_attn.split(t)
                            for t in qkv.split(hd, dim=-1))
-        for kind, t in (("k", k_new), ("v", v_new)):
-            tq, ts = quantize_kv4(t)                          # [B,1,H,Dk]
-            cache[f"self_{kind}_q4"][:, step] = mxu_decode.pack_int4(
-                tq.reshape(batch, 1, hd))[:, 0]
-            cache[f"self_{kind}_s"][:, :, step] = ts[:, 0].to(torch.bfloat16)
-        out = attend(q[:, 0], cache["self_k_q4"], cache["self_k_s"],
-                     cache["self_v_q4"], cache["self_v_s"], self_bias_row)
-        x = x + qlinear(out.reshape(batch, 1, hd), qw["self_o_q"],
+        self._write_ring(cache, step, k_new, v_new)
+        out = attend(q[:, 0], cache["self_k" + suffix], cache["self_k_s"],
+                     cache["self_v" + suffix], cache["self_v_s"],
+                     self_bias_row)
+        x = x + qlinear(out.reshape(rows, 1, hd), qw["self_o_q"],
                         qw["self_o_s"])
         h = self.ln_cross(x)
-        q = self.cross_attn.split(qlinear(h, qw["cross_q_q"],
-                                          qw["cross_q_s"]))
-        out = attend(q[:, 0], cache["cross_k_q4"], cache["cross_k_s"],
-                     cache["cross_v_q4"], cache["cross_v_s"], cross_bias)
-        x = x + qlinear(out.reshape(batch, 1, hd), qw["cross_o_q"],
+        q = qlinear(h, qw["cross_q_q"], qw["cross_q_s"])       # [rows,1,HD]
+        slab_rows = cache["cross_k" + suffix].shape[0]
+        beams = rows // slab_rows
+        # beams fold into the query rows: row (beam, head) reads the shared
+        # slab's column block `head`
+        head_map = None if beams == 1 else tuple(range(heads)) * beams
+        out = attend(q.reshape(slab_rows, beams * heads, dk),
+                     cache["cross_k" + suffix], cache["cross_k_s"],
+                     cache["cross_v" + suffix], cache["cross_v_s"],
+                     cross_bias, head_map=head_map)
+        x = x + qlinear(out.reshape(rows, 1, hd), qw["cross_o_q"],
                         qw["cross_o_s"])
         return x + self._ff_decode(self.ln_ff(x), qw)
 
@@ -257,8 +321,10 @@ class Decoder(nn.Module):
     def layers(self) -> List[DecoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def init_cache(self, enc: torch.Tensor, max_len: int) -> List[Cache]:
-        return [layer.init_cache(enc, max_len) for layer in self.layers()]
+    def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
+                   rows: int) -> List[Cache]:
+        return [layer.init_cache(enc, max_len, int4_cross, rows)
+                for layer in self.layers()]
 
     def quantize_weights(self):
         return [layer.quantize_weights() for layer in self.layers()]

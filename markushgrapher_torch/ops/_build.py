@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels; count their launches.
 
-The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface.
-At first use they are compiled with nvcc for Hopper (`sm_90a`) into one
-shared library under `markushgrapher_torch/_build/` (named by a hash of the
-sources and flags, so an edit rebuilds) and loaded with ctypes. Nothing is
-built or imported at module import: the CPU tests import every module.
+The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
+(the two decode kernels share `decode_common.cuh`). At first use they are
+compiled with nvcc for Hopper (`sm_90a`), one nvcc
+process per source, all started together, and linked into one shared
+library under `markushgrapher_torch/_build/` (named by a hash of the sources
+and flags, so an edit rebuilds), loaded with ctypes. Nothing is built or
+imported at module import: the CPU tests import every module.
 
 Every kernel wrapper adds one to its entry of `LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show that the main path went
@@ -27,14 +29,15 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu")
+SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
+           "decode_i8.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
-                            "decode_int4": 0}
+                            "decode_int4": 0, "decode_i8": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -43,9 +46,10 @@ _SIGNATURES = {
     "mg_bias_build_i8": [_P] * 9 + [_I] * 6 + [_F, _P, _P],
     # q, k, v, bias, scales, key_mask, B, L, H, D, out, stream
     "mg_flash_i8": [_P] * 6 + [_I] * 4 + [_P, _P],
-    # q, kq, ks, vq, vs, bias, B, H, D, K, bias_bstride, bias_hstride,
-    # out_bf16, out, stream
-    "mg_decode_int4": [_P] * 6 + [_I] * 7 + [_P, _P],
+    # q, kq, ks, vq, vs, bias, head_map, B, R, G, D, K, scale_rows,
+    # bias_bstride, bias_rstride, out_bf16, out, stream
+    "mg_decode_int4": [_P] * 7 + [_I] * 9 + [_P, _P],
+    "mg_decode_i8": [_P] * 7 + [_I] * 9 + [_P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -70,31 +74,44 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / s for s in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libmg_kernels_{h.hexdigest()[:12]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Records the wall seconds and ptxas's register / spill report in
-    `build_info`."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all running at once, then one link. Records the
+    wall seconds and ptxas's register / spill report in `build_info`."""
     out = library_path()
     if out.exists():
         build_info.setdefault("seconds", 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = [nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stdout + proc.stderr, command=cmd)
+    for o in objs:
+        o.unlink()
+    build_info.update(seconds=time.perf_counter() - t0, ptxas="".join(logs),
+                      command=cmds + [link])
     return out
 
 

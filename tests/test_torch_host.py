@@ -1,0 +1,87 @@
+"""The port's own copies of the host modules (tokenizer, CXSMILES parser,
+chemistry scoring, dataset encoding and collator) give the same results as
+the JAX package's originals on the same synthetic samples. Neither side needs
+rdkit or nltk: where those are installed both copies use them, where not
+both take the same pure-Python fallbacks."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from markushgrapher_tpu.chem import cxsmiles as j_cx
+from markushgrapher_tpu.chem import evaluation as j_eval
+from markushgrapher_tpu.data import collator as j_coll
+from markushgrapher_tpu.data import dataset as j_ds
+from markushgrapher_tpu.data import markush_tokenizer as j_mt
+from markushgrapher_tpu.data import synthetic as j_syn
+from markushgrapher_torch.chem import cxsmiles as t_cx
+from markushgrapher_torch.chem import evaluation as t_eval
+from markushgrapher_torch.data import collator as t_coll
+from markushgrapher_torch.data import dataset as t_ds
+from markushgrapher_torch.data import markush_tokenizer as t_mt
+from markushgrapher_torch.data import synthetic as t_syn
+
+N = 4
+T, DEC = 128, 64
+
+
+@pytest.fixture(scope="module")
+def sides():
+    """Per side: tokenizer, dataset over the same synthetic pages, and the
+    pages themselves (made by the JAX package's generator; the port's copy
+    must make the same)."""
+    source = j_syn.generate_dataset(N + 1, seed=3, image_size=64)
+    out = {}
+    for name, mt_mod, ds_mod in (("jax", j_mt, j_ds), ("torch", t_mt, t_ds)):
+        mt = mt_mod.MarkushTokenizer()
+        ds = ds_mod.MDUDataset(source=source, markush_tokenizer=mt,
+                               image_size=64, ocsr_image_size=16,
+                               max_seq_length=T, max_seq_length_decoder=DEC)
+        out[name] = (mt, ds)
+    return source, out
+
+
+@pytest.mark.parametrize("idx", range(N))
+def test_host_copy_matches_jax(sides, idx):
+    source, side = sides
+    (jmt, jds), (tmt, tds) = side["jax"], side["torch"]
+    sample, other = source[idx], source[idx + 1]
+
+    # the port's synthetic generator makes the same page annotation
+    assert t_syn.generate_dataset(N + 1, seed=3, image_size=64)[idx][
+        "annotation"] == sample["annotation"]
+
+    # MarkushTokenizer: ids, decoded text, parsed table
+    ids = jmt.encode(sample["annotation"])
+    assert tmt.encode(sample["annotation"]) == ids
+    assert tmt.decode(ids) == jmt.decode(ids)
+    assert tmt.get_stable(sample["annotation"]) == \
+        jmt.get_stable(sample["annotation"])
+
+    # CXSMILES conversion and parse
+    out_j = j_cx.convert_opt_to_out(sample["cxsmiles_opt"])
+    assert t_cx.convert_opt_to_out(sample["cxsmiles_opt"]) == out_j
+    assert dataclasses.asdict(t_cx.parse_cxsmiles(out_j)) == \
+        dataclasses.asdict(j_cx.parse_cxsmiles(out_j))
+
+    # score_sample: an exact prediction and another page's annotation
+    gt_stable = jmt.get_stable(sample["annotation"])
+    for pred in (sample["annotation"], other["annotation"]):
+        want = j_eval.score_sample(pred, sample["cxsmiles_opt"], gt_stable,
+                                   jmt)
+        got = t_eval.score_sample(pred, sample["cxsmiles_opt"], gt_stable,
+                                  tmt)
+        assert got == want
+
+    # dataset encoding + DataCollator output
+    items = [[{k: v for k, v in ds[i].items() if k != "id"}
+              for i in (idx, idx + 1)] for ds in (jds, tds)]
+    want = j_coll.DataCollator(max_length=T, max_length_decoder=DEC)(
+        items[0])
+    got = t_coll.DataCollator(max_length=T, max_length_decoder=DEC)(
+        items[1])
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        assert got[key].dtype == arr.dtype, key
+        np.testing.assert_array_equal(got[key], arr, err_msg=key)

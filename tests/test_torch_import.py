@@ -1,6 +1,8 @@
-"""The port imports torch and never jax / flax, and it (with chip_smoke.py)
-imports on a machine that has neither yaml, PIL nor `datasets`."""
+"""The port imports torch and never jax / flax nor the JAX package
+`markushgrapher_tpu`, and it (with chip_smoke.py) imports on a machine that
+has neither yaml, PIL nor `datasets`."""
 
+import ast
 import json
 import os
 import subprocess
@@ -25,7 +27,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 print(json.dumps({"modules": mods, "loaded": sorted(
-    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))}))
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "markushgrapher_tpu"))}))
 """
 
 
@@ -38,7 +41,10 @@ def _run(block: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("block", ["", "jax,jaxlib,flax,yaml,PIL,datasets"])
+@pytest.mark.parametrize("block", [
+    pytest.param("markushgrapher_tpu", id=""),
+    pytest.param("jax,jaxlib,flax,markushgrapher_tpu,yaml,PIL,datasets",
+                 id="jax,jaxlib,flax,yaml,PIL,datasets")])
 def test_port_imports_no_jax(block):
     out = _run(block)
     assert out["loaded"] == []
@@ -47,5 +53,31 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.eval_main",
                  "markushgrapher_torch.ops.bias_build",
                  "markushgrapher_torch.ops.flash_attention",
-                 "markushgrapher_torch.ops.mxu_decode"):
+                 "markushgrapher_torch.ops.mxu_decode",
+                 "markushgrapher_torch.data.markush_tokenizer",
+                 "markushgrapher_torch.chem.evaluation"):
         assert name in out["modules"]
+
+
+def _imported_roots(path):
+    """Top-level package of every import statement in a source file,
+    function-level (lazy) imports included."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_names_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "markushgrapher_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = sorted((os.path.relpath(f, REPO), root) for f in files
+                 for root in _imported_roots(f)
+                 if root in ("markushgrapher_tpu", "jax", "jaxlib", "flax"))
+    assert bad == []

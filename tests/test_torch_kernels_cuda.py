@@ -31,8 +31,8 @@ def test_main_path_shapes(dev):
         os.path.abspath(__file__))))
     import chip_smoke
 
-    res = chip_smoke.check_kernels(dev)
-    assert set(res) == {"bias_build_i8", "flash_i8", "decode_int4"}
+    res = chip_smoke.check_kernels(dev, pack=1280)
+    assert set(res) == set(chip_smoke.KERNELS)
 
 
 def test_bias_builder_packed_positions(dev):
@@ -78,9 +78,81 @@ def test_decode_small_heads(dev):
               .to(torch.bfloat16) for _ in range(2))
     bias = torch.zeros((1, 1, K), device=dev)
     got = mxu_decode.cross_decode_mxu_int4(q, kq, ks, vq, vs, bias)
-    ref = mxu_decode.plain(q, kq, ks, vq, vs, bias)
+    ref = mxu_decode.plain_int4(q, kq, ks, vq, vs, bias)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["grouped", "beam", "per_head_bias"])
+def test_decode_i8_layouts(dev, case):
+    """decode_i8 with grouped kv blocks (G < R), the beam head map with
+    per-block scales, and the self ring's per-head causal bias with a
+    zero-scale unwritten tail; full int8 range; tiny head dim D = 8 takes
+    the 4-byte loads."""
+    rng = np.random.RandomState(3)
+    B, D, K = 3, 8, 320
+    rows, groups, head_map = {"grouped": (8, 2, None),
+                              "beam": (12, 4, tuple(range(4)) * 3),
+                              "per_head_bias": (8, 8, None)}[case]
+    q = torch.tensor(rng.randn(B, rows, D), dtype=torch.float32, device=dev)
+    kq, vq = (torch.tensor(rng.randint(-127, 128, (B, K, groups * D)),
+                           dtype=torch.int8, device=dev) for _ in range(2))
+    srows = groups if case == "beam" else rows
+    ks, vs = (torch.tensor(rng.rand(B, srows, K) * 0.02, dtype=torch.float32,
+                           device=dev) for _ in range(2))
+    if case == "per_head_bias":
+        step = 200
+        bias = torch.tensor(rng.randn(1, rows, K) * 0.5, dtype=torch.float32,
+                            device=dev)
+        bias[:, :, step + 1:] = torch.finfo(torch.float32).min
+        ks[:, :, step + 1:] = 0.0
+        vs[:, :, step + 1:] = 0.0
+        kq[:, step + 1:] = 0
+        vq[:, step + 1:] = 0
+    else:
+        bias = torch.zeros((B, 1, K), device=dev)
+        bias[:, :, -50:] = -1e9
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu(q, kq, ks, vq, vs, bias,
+                                      head_map=head_map)
+    assert _build.LAUNCHES["decode_i8"] == 1
+    ref = mxu_decode.plain_int8(q, kq, ks, vq, vs, bias, head_map=head_map)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-2)
+
+
+def test_decode_int4_head_map(dev):
+    """decode_int4 with the beam head map (3 beams over a 4-head packed
+    slab), per-block bf16 scales, bf16 query and output."""
+    rng = np.random.RandomState(4)
+    B, H, D, K, beams = 2, 4, 64, 512, 3
+    head_map = tuple(range(H)) * beams
+    q = torch.tensor(rng.randn(B, beams * H, D), device=dev).to(
+        torch.bfloat16)
+    kq, vq = (mxu_decode.pack_int4(torch.tensor(
+        rng.randint(-7, 8, (B, K, H * D)), dtype=torch.int8, device=dev))
+        for _ in range(2))
+    ks, vs = (torch.tensor(rng.rand(B, H, K) * 0.2, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    bias = torch.zeros((B, 1, K), device=dev)
+    bias[:, :, -70:] = -1e9
+    got = mxu_decode.cross_decode_mxu_int4(q, kq, ks, vq, vs, bias,
+                                           head_map=head_map)
+    ref = mxu_decode.plain_int4(q, kq, ks, vq, vs, bias, head_map=head_map)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def test_decode_i8_refuses_too_many_keys(dev):
+    q = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 12288, 1024), dtype=torch.int8, device=dev)
+    sc = torch.zeros((1, 16, 12288), device=dev)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        mxu_decode.cross_decode_mxu(q, kv, sc, kv, sc,
+                                    torch.zeros((1, 1, 12288), device=dev))
+    assert _build.LAUNCHES["decode_i8"] == 0
 
 
 def test_wrappers_count_and_refuse(dev):

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's three kernels against the JAX
+"""The plain PyTorch versions of the port's four kernels against the JAX
 functions they replace (Pallas run in interpret mode, as the JAX package's
 own tests run it), and the CPU dispatch of their wrappers."""
 
@@ -126,3 +126,97 @@ def test_pack_int4_matches_and_round_trips():
                                   np.asarray(jdec.pack_int4(jnp.asarray(vals))))
     np.testing.assert_array_equal(tdec.unpack_int4(got).numpy(),
                                   vals.astype(np.float32))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each entry (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _decode_case(case, rng, B=2, D=8, K=256):
+    """(q, K/V int8 [B, K, G*D], per-row scales [B, R, K], bias, head_map,
+    groups) for one layout of the decode kernels' contract."""
+    if case == "grouped":            # GQA: 8 query rows over 2 kv blocks
+        rows, groups, head_map = 8, 2, None
+    elif case == "beam":             # 3 beams x 4 heads over a 4-head slab
+        rows, groups, head_map = 12, 4, tuple(range(4)) * 3
+    else:                            # one query row per kv block
+        rows, groups, head_map = 8, 8, None
+    q = rng.randn(B, rows, D).astype(np.float32)
+    kv = [rng.randint(-127, 128, (B, K, groups * D)).astype(np.int8)
+          for _ in "kv"]
+    sc = [(rng.rand(B, groups, K) * 0.02).astype(np.float32) for _ in "kv"]
+    if case == "per_head_bias":      # the self ring: causal row per head
+        step = 150
+        bias = (rng.randn(1, rows, K) * 0.5).astype(np.float32)
+        bias[:, :, step + 1:] = np.finfo(np.float32).min
+        for t, s_ in zip(kv, sc):
+            t[:, step + 1:] = 0
+            s_[:, :, step + 1:] = 0.0
+    else:                            # the cross slab: shared key mask
+        bias = np.zeros((B, 1, K), np.float32)
+        bias[:, :, -60:] = -1e9
+    hm = np.asarray(head_map if head_map is not None
+                    else np.arange(rows) // (rows // groups))
+    rows_sc = [s_[:, hm] for s_ in sc]                  # tiled per row
+    return q, kv, sc, rows_sc, bias, head_map
+
+
+@pytest.mark.parametrize("case", ["grouped", "beam", "shared_bias",
+                                  "per_head_bias"])
+def test_decode_i8_plain_vs_jax_kernel(case):
+    """Plain int8 decode attention (and the wrapper's CPU dispatch) against
+    the JAX `cross_decode_mxu`, within one bf16 ulp of each output: both
+    round q, p * vs and the output at the same points and sum in f32. The
+    port takes the scales per query row, as the JAX kernel does, and per
+    kv block, indexed by the head map."""
+    q, (kq, vq), sc, rows_sc, bias, head_map = _decode_case(
+        case, np.random.RandomState(5))
+    want = np.asarray(jdec.cross_decode_mxu(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(rows_sc[0]),
+        jnp.asarray(vq), jnp.asarray(rows_sc[1]), jnp.asarray(bias),
+        head_map=head_map))
+    _build.reset_launches()
+    for scales in (rows_sc, sc):
+        got = tdec.cross_decode_mxu(
+            torch.from_numpy(q), torch.from_numpy(kq),
+            torch.from_numpy(scales[0]), torch.from_numpy(vq),
+            torch.from_numpy(scales[1]), torch.from_numpy(bias),
+            head_map=head_map).numpy()
+        assert got.dtype == np.float32 and np.isfinite(got).all()
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all(), \
+            np.abs(got - want).max()
+    assert _build.LAUNCHES["decode_i8"] == 0            # CPU -> plain
+
+
+def test_decode_int4_head_map_plain_vs_jax_kernel():
+    """Plain int4 decode attention with the beam head map (3 beams folded
+    over a 4-head packed slab) against the JAX `cross_decode_mxu_int4`,
+    with per-row (tiled) and per-block scales; atol as in
+    test_decode_plain_vs_jax_kernel."""
+    rng = np.random.RandomState(6)
+    B, H, D, K, beams = 2, 4, 8, 256, 3
+    head_map = tuple(range(H)) * beams
+    q = rng.randn(B, beams * H, D).astype(np.float32)
+    kv = [rng.randint(-7, 8, (B, K, H * D)).astype(np.int8) for _ in "kv"]
+    sc = [(rng.rand(B, H, K) * 0.3).astype(np.float32) for _ in "kv"]
+    bias = np.zeros((B, 1, K), np.float32)
+    bias[:, :, -60:] = -1e9
+    kq, vq = (np.array(jdec.pack_int4(jnp.asarray(t))) for t in kv)
+    ks, vs = (jnp.asarray(s, jnp.bfloat16) for s in sc)
+    want = np.asarray(jdec.cross_decode_mxu_int4(
+        jnp.asarray(q), jnp.asarray(kq), jnp.tile(ks, (1, beams, 1)),
+        jnp.asarray(vq), jnp.tile(vs, (1, beams, 1)), jnp.asarray(bias),
+        head_map=head_map))
+    to_t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa
+    _build.reset_launches()
+    for rep in (beams, 1):
+        got = tdec.cross_decode_mxu_int4(
+            torch.from_numpy(q), torch.from_numpy(kq),
+            to_t(ks).repeat(1, rep, 1).to(torch.bfloat16),
+            torch.from_numpy(vq),
+            to_t(vs).repeat(1, rep, 1).to(torch.bfloat16),
+            torch.from_numpy(bias), head_map=head_map)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0)
+    assert _build.LAUNCHES["decode_int4"] == 0
