@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MarkushGrapher serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU: the
+MarkushGrapher stage, the ChemicalOCR stage, and the two in a pipeline.
 
     python3 chip_smoke.py
 
@@ -14,19 +15,31 @@ prints no result):
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
    989 TFLOP/s bf16, whichever is larger) and, where one PyTorch call
-   computes the same function, that call's time;
+   computes the same function, that call's time. The OCR shapes: the
+   megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
+   p = L0 + 400; decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv
+   heads) over that ring;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
    never firing, along four paths: greedy under int4 KV for 512 steps, beam-5
    under int4 KV for 512 steps, greedy under int8 KV for 512 steps, and
-   beam-5 under int8 KV for 128 steps. For each: the launch counts of every
-   kernel (every count set to 0 just before the path, read just after), and
-   every kernel call of the encode and of the first 8 decode steps held to
-   its plain version on the same inputs. For the int4 greedy path also the
-   end-to-end difference from the plain path beside a half-ulp-nudge
-   control, and a few rows decoded to strings;
+   beam-5 under int8 KV for 128 steps. Then OCRConfig() (seeded random bf16
+   weights) through `ChemicalOCR.generate_batch` on seeded uint8 pages at
+   batch 8, 512 new tokens, eos never firing, along three paths: int4 KV,
+   int8 KV, and the megastep (int8 KV, one launch per step). For each: the
+   launch counts of every kernel (every count set to 0 just before the path,
+   read just after), and every kernel call of the encode (MG) and of the
+   first 8 decode steps held to its plain version on the same inputs (the
+   megastep one layer at a time and as a whole step). For the int4 greedy
+   path also the end-to-end difference from the plain path beside a
+   half-ulp-nudge control; for every path a few rows decoded to strings;
 5. timing: encode ms, decode ms/step and img/s of int4 greedy at batch 8 and
-   48, beam-5 (int4) at batch 8 and 16, int8 greedy at batch 8 and 48.
+   48, beam-5 (int4) at batch 8 and 16, int8 greedy at batch 8 and 48; OCR
+   prefill ms, ms/step and img/s of each OCR path at batch 8; and one
+   pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
+   fallback cells where random weights emit none) -> SampleEncoder /
+   DataCollator with pixels from `data.device_pixels` -> MG greedy int4,
+   512 steps at batch 8, in img/s.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and `{"ok": true, "device": {...}}`.
@@ -52,6 +65,8 @@ KERNELS = {
                     "markushgrapher_tpu/ops/mxu_decode.py:498"),
     "decode_i8": ("markushgrapher_torch/csrc/decode_i8.cu",
                   "markushgrapher_tpu/ops/mxu_decode.py:351"),
+    "ocr_megastep": ("markushgrapher_torch/csrc/ocr_megastep.cu",
+                     "markushgrapher_tpu/ops/megastep.py:363"),
 }
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
@@ -64,15 +79,36 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 #    relative), plus a small absolute floor for outputs near zero. The
 #    decode kernels also round p * vs to bf16 inside, where a one-ulp flip
 #    of one weight can move the output by a little more.
+#  - ocr_megastep, one layer at a time on the same bf16 input: the output is
+#    x + attention + MLP rounded to bf16 once, so two output ulps (2 * 2^-7
+#    relative). The kernel sums its GEMVs in another order, so a new K/V
+#    value that lies near a rounding tie gets the neighbouring int8 code
+#    (one step, as the ring check allows); through the attention of the
+#    group's three heads that moves a few outputs by up to ~4e-3 absolute
+#    (measured at OCRConfig() width), which shows where x + delta nearly
+#    cancels: an absolute floor of 8e-3. The whole 32-layer step is
+#    reported, and gated at WHOLE_STEP_REL relative L2 (the float32
+#    residual carries such moves on through the layers). Ring writes: the
+#    int8 codes within one step, scales within 1e-3 relative.
 # The same tolerances hold for every kernel call inside the model (phase 4),
 # where they gate the attention output before the o-projection and the
 # residual add.
 TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
-       "decode_i8": (2e-3, 2e-2)}
+       "decode_i8": (2e-3, 2e-2), "ocr_megastep": (8e-3, 1.6e-2)}
+WHOLE_STEP_REL = 2e-2
 # phase 4's paths at batch 8: (name, int4 KV, beams, decode steps)
 PATHS = (("greedy_int4", True, 1, 512), ("beam5_int4", True, 5, 512),
          ("greedy_int8", False, 1, 512), ("beam5_int8", False, 5, 128))
 CHECKED_STEPS = 8
+# the OCR paths: batch, new tokens, and (name, OCREngineConfig flags, the
+# kernel each decode step launches)
+OCR_BATCH, OCR_TOKENS = 8, 512
+OCR_PATHS = (
+    ("ocr_int4", dict(quant_kv=True, int4_kv=True, quant_weights=True),
+     "decode_int4"),
+    ("ocr_int8", dict(quant_kv=True, quant_weights=True), "decode_i8"),
+    ("ocr_mega", dict(quant_kv=True, quant_weights=True, megastep=True),
+     "ocr_megastep"))
 
 
 def gpu_line() -> str:
@@ -115,9 +151,11 @@ def within(name: str, got, ref) -> float:
     atol, rtol = TOL[name]
     bad = err > atol + rtol * r.abs()
     if not bool(torch.isfinite(g).all()) or bool(bad.any()):
+        worst = torch.topk((err - rtol * r.abs()).flatten(), 3).indices
         raise AssertionError(
             f"{name}: {int(bad.sum())} entries outside atol={atol} "
-            f"rtol={rtol}; max abs err {float(err.max()):.3e}")
+            f"rtol={rtol}; max abs err {float(err.max()):.3e}; worst (got, "
+            f"want): {[(float(g.flatten()[i]), float(r.flatten()[i])) for i in worst]}")
     return float(err.max())
 
 
@@ -142,6 +180,20 @@ def decode_bound(q, kq, ks, vq, vs, bias, out) -> dict:
     kv_bytes = nbytes(kq, vq, ks, vs) * live / kv_len
     flops = 4 * q.shape[0] * q.shape[1] * live * q.shape[2]
     return bound(nbytes(q, bias, out) + kv_bytes, flops)
+
+
+def decode_run(name, kernel, plain, args, kw, iters=50) -> dict:
+    """A decode kernel against its plain version on the same inputs, timed,
+    beside its bound."""
+    import torch
+
+    got = kernel(*args, **kw)
+    err = within(name, got, plain(*args, **kw))
+    torch.cuda.synchronize()
+    return dict(max_abs_err=err,
+                ms=cuda_ms(lambda: kernel(*args, **kw), iters),
+                plain_ms=cuda_ms(lambda: plain(*args, **kw), 20),
+                library_ms=None, **decode_bound(*args, got))
 
 
 def report(name: str, shape: str, res: dict) -> None:
@@ -250,15 +302,6 @@ def check_kernels(dev, pack: int) -> dict:
         srow[:, :, :step + 1] = rng.randn(1, H, step + 1) * 0.5
         return torch.tensor(srow, device=dev)
 
-    def run(name, kernel, plain, args, kw, iters=50):
-        got = kernel(*args, **kw)
-        err = within(name, got, plain(*args, **kw))
-        torch.cuda.synchronize()
-        return dict(max_abs_err=err,
-                    ms=cuda_ms(lambda: kernel(*args, **kw), iters),
-                    plain_ms=cuda_ms(lambda: plain(*args, **kw), 20),
-                    library_ms=None, **decode_bound(*args, got))
-
     beams, step, ring = 5, 300, 512
     beam_map = tuple(range(H)) * beams
     for name, kernel, plain, int4 in (
@@ -273,7 +316,7 @@ def check_kernels(dev, pack: int) -> dict:
         kq, ks = slab(8, kp, valid, int4)
         vq, vs = slab(8, kp, valid, int4)
         cargs = (query(8, H), kq, ks, vq, vs, cross_bias(8, kp, valid))
-        out[name] = run(name, kernel, plain, cargs, {})
+        out[name] = decode_run(name, kernel, plain, cargs, {})
         report(name, f"cross B=8 R={H} Kp={kp}", out[name])
         # beam cross: 8 slab rows, 5 beams folded into 80 query rows
         bq, bs = slab(8, pack, pack - 100, int4)
@@ -281,15 +324,323 @@ def check_kernels(dev, pack: int) -> dict:
         bargs = (query(8, beams * H), bq, bs, bv, bvs,
                  cross_bias(8, pack, pack - 100))
         report(name, f"beam cross B=8 R={beams * H} Kp={pack} head_map",
-               run(name, kernel, plain, bargs, dict(head_map=beam_map)))
+               decode_run(name, kernel, plain, bargs,
+                          dict(head_map=beam_map)))
         # self ring: 8 x 5 beam rows, per-head causal bias row
         rows = 8 * beams
         rk, rks = slab(rows, ring, step + 1, int4)
         rv, rvs = slab(rows, ring, step + 1, int4)
         sargs = (query(rows, H), rk, rks, rv, rvs, self_bias(ring, step))
         report(name, f"self rows={rows} R={H} S={ring} step={step}",
-               run(name, kernel, plain, sargs, {}))
+               decode_run(name, kernel, plain, sargs, {}))
     return out
+
+
+def ocr_model(dev):
+    """OCRConfig() at full width and depth, seeded random bf16 weights."""
+    import torch
+
+    from markushgrapher_torch.ocr.vlm import ChemicalOCRModel, OCRConfig
+
+    with torch.device(dev):
+        model = ChemicalOCRModel(OCRConfig(max_new_tokens=OCR_TOKENS))
+    model.init_weights(SEED)
+    return model.to(torch.bfloat16).eval()
+
+
+def ocr_prefix_len(model) -> int:
+    """L0: the image tokens plus the engine's prompt tokens."""
+    from markushgrapher_torch.data.vocab import MGTokenizer
+    from markushgrapher_torch.ocr.engine import DEFAULT_PROMPT
+
+    return model.cfg.num_image_tokens + len(
+        MGTokenizer().encode(DEFAULT_PROMPT, add_eos=False))
+
+
+def mega_check(kernel, x, rings, w, rope, pos, kw) -> tuple:
+    """ocr_megastep (`kernel`, counted as a launch) against plain_megastep
+    on the same inputs: layer by layer (both on the plain chain's input,
+    each output within TOL["ocr_megastep"], the ring column `pos` within one
+    int8 step), then the whole step (relative L2 of the output and of the
+    dequantised ring column within WHOLE_STEP_REL, the earlier columns
+    untouched). The kernel's whole-step ring writes stay in
+    `rings`; the launches of the layer-by-layer calls are not counted.
+    Returns (kernel output, per-layer max abs err, whole-step max abs err,
+    whole-step relative L2)."""
+    import torch
+
+    from markushgrapher_torch.ops import _build, megastep
+
+    before = {k: v.clone() for k, v in rings.items()}
+    got = kernel(x, rings, w, rope, pos, **kw)
+    counted = _build.LAUNCHES["ocr_megastep"]
+    ref_rings = {k: v.clone() for k, v in before.items()}
+    ref = megastep.plain_megastep(x, ref_rings, w, rope, pos, **kw)
+    # whole step: later layers see the residual after earlier layers' one-ulp
+    # moves, so their ring rows are compared dequantised, like the output
+    rel = _rel(got, ref)
+    col = [_rel(deq_column(rings, n, pos), deq_column(ref_rings, n, pos))
+           for n in ("k", "v")]
+    untouched = all(torch.equal(rings[k][:, :, :pos], before[k][:, :, :pos])
+                    for k in ("k_q", "v_q"))
+    if not (max([rel] + col) <= WHOLE_STEP_REL and untouched
+            and bool(got.float().isfinite().all())):
+        raise AssertionError(
+            f"ocr_megastep whole step: relative L2 {rel:.3e}, ring column "
+            f"k / v {col[0]:.3e} / {col[1]:.3e} (gate {WHOLE_STEP_REL}); "
+            f"earlier columns untouched {untouched}")
+    errs, xin = [], x
+    for layer in range(w["wqkv"].shape[0]):
+        one = {k: t[layer:layer + 1] for k, t in w.items()}
+        rk = {k: t[layer:layer + 1].clone() for k, t in before.items()}
+        rp = {k: t[layer:layer + 1].clone() for k, t in before.items()}
+        gk = kernel(xin, rk, one, rope, pos, **kw)
+        gp = megastep.plain_megastep(xin, rp, one, rope, pos, **kw)
+        try:
+            errs.append(within("ocr_megastep", gk, gp))
+        except AssertionError as e:
+            raise AssertionError(f"layer {layer}, position {pos}: {e}")
+        rings_close(rk, rp, pos, f"layer {layer}")
+        xin = gp
+    _build.LAUNCHES["ocr_megastep"] = counted
+    return got, max(errs), float((got.float() - ref.float()).abs().max()), rel
+
+
+def deq_column(rings: dict, name: str, pos: int):
+    """Ring column `pos` of K or V dequantised, [L, B, G, D] float32."""
+    vals = rings[name + "_q"][:, :, pos].float()
+    sc = rings[name + "_s"][..., pos]
+    return vals.reshape(*sc.shape, -1) * sc[..., None]
+
+
+def rings_close(got: dict, ref: dict, pos: int, what: str) -> None:
+    """Ring writes of kernel and plain: columns other than `pos` untouched
+    alike, int8 codes at `pos` within one step, scales (max|k| / 127)
+    within 1e-3 relative: one bf16 ulp of one normalised input element
+    moves a projection by ~1e-4 of itself."""
+    for name in ("k", "v"):
+        dq = (got[name + "_q"].int() - ref[name + "_q"].int()).abs()
+        ds = (got[name + "_s"] - ref[name + "_s"]).abs()
+        tol_s = 1e-3 * ref[name + "_s"].abs() + 1e-12
+        if int(dq.max()) > 1 or int(dq[:, :, :pos].max()) > 0 or bool(
+                (ds > tol_s).any()):
+            raise AssertionError(
+                f"ocr_megastep {what}: ring {name} differs from plain (codes "
+                f"by {int(dq.max())}, scales by {float(ds.max()):.3e})")
+
+
+def check_ocr_kernels(dev, model) -> dict:
+    """The kernels at the OCR shapes (OCRConfig() width, batch 8, ring
+    L0 + 512 rounded up to 128): the megastep at p = L0 and p = L0 + 400
+    (its headline), decode_int4 at G = 5 and decode_i8 at 15 rows over 5 kv
+    heads, both at p = L0 + 400. Returns {"ocr_megastep": {...}}."""
+    import torch
+
+    from markushgrapher_torch.ops import megastep, mxu_decode
+
+    t = model.cfg.text
+    heads, groups, d = t.num_heads, t.num_kv_heads, t.d_model // t.num_heads
+    l0 = ocr_prefix_len(model)
+    ring = l0 + OCR_TOKENS
+    ring += -ring % 128
+    w = model.megastep_pack()["lm"]
+    kw = dict(heads=heads, groups=groups, rms_eps=t.rms_eps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b, n_layers, dkv = OCR_BATCH, t.num_layers, groups * d
+    late = l0 + min(400, OCR_TOKENS - 1)
+    out = {}
+    for pos in (l0, late):
+        rings = {}
+        for name in ("k", "v"):
+            vals = torch.randint(-127, 128, (n_layers, b, ring, dkv),
+                                 generator=gen, device=dev, dtype=torch.int8)
+            sc = torch.rand((n_layers, b, groups, ring), generator=gen,
+                            device=dev) * 0.03
+            vals[:, :, pos:] = 0
+            sc[..., pos:] = 0
+            rings[name + "_q"], rings[name + "_s"] = vals, sc
+        x = torch.randn((b, t.d_model), generator=gen, device=dev).to(
+            torch.bfloat16)
+        _, err, step_err, rel = mega_check(megastep.ocr_megastep, x, rings,
+                                           w, model.rope(), pos, kw)
+        torch.cuda.synchronize()
+        live = {k: v[:, :, :pos] if k.endswith("_q") else v[..., :pos]
+                for k, v in rings.items()}
+        weights = sum(v.numel() for k, v in w.items() if v.dtype ==
+                      torch.int8)
+        flops = 2 * b * weights + 4 * b * heads * pos * d * n_layers
+        res = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: megastep.ocr_megastep(
+                x, rings, w, model.rope(), pos, **kw)),
+            plain_ms=cuda_ms(lambda: megastep.plain_megastep(
+                x, rings, w, model.rope(), pos, **kw), 3, 1),
+            library_ms=None,
+            **bound(nbytes(x, x, *w.values(), *live.values()), flops))
+        report("ocr_megastep", f"L={n_layers} B={b} S={ring} p={pos}; whole "
+               f"step max abs err {step_err:.3e}, rel L2 {rel:.3e}", res)
+        out["ocr_megastep"] = res
+
+    # decode attention over the OCR ring: 15 query heads over 5 kv heads
+    pos = late
+    rng = np.random.RandomState(SEED + 3)
+    bias = torch.full((1, 1, ring), torch.finfo(torch.float32).min,
+                      device=dev)
+    bias[..., :pos + 1] = 0.0
+    q = torch.tensor(rng.randn(b, heads, d).astype(np.float32) * 0.125,
+                     device=dev).to(torch.bfloat16)
+    for name, kernel, plain, top in (
+            ("decode_int4", mxu_decode.cross_decode_mxu_int4,
+             mxu_decode.plain_int4, 8),
+            ("decode_i8", mxu_decode.cross_decode_mxu,
+             mxu_decode.plain_int8, 128)):
+        kv = []
+        for _ in range(2):
+            vals = rng.randint(1 - top, top, size=(b, ring, dkv)).astype(
+                np.int8)
+            vals[:, pos + 1:] = 0
+            sc = rng.rand(b, groups, ring).astype(np.float32) * 0.05
+            sc[:, :, pos + 1:] = 0.0
+            vt, st = torch.tensor(vals, device=dev), torch.tensor(
+                sc, device=dev)
+            kv += ([mxu_decode.pack_int4(vt), st.to(torch.bfloat16)]
+                   if top == 8 else [vt, st])
+        report(name, f"OCR ring B={b} R={heads} G={groups} S={ring} "
+               f"p={pos}", decode_run(name, kernel, plain,
+                                      (q, *kv, bias), {}))
+    return out
+
+
+@contextlib.contextmanager
+def checked_megastep(errs: dict, calls: int):
+    """Route the model's first `calls` megastep calls through mega_check
+    (layer by layer and whole step against the plain version); later calls
+    go to the kernel alone. errs["ocr_megastep"] collects the per-layer max
+    abs errors, errs["ocr_megastep_step"] the whole-step relative L2."""
+    from markushgrapher_torch.ops import megastep
+
+    saved = megastep.ocr_megastep
+    left = [calls]
+
+    def call(x, rings, w, rope, pos, **kw):
+        if left[0] == 0:
+            return saved(x, rings, w, rope, pos, **kw)
+        left[0] -= 1
+        got, err, _, rel = mega_check(saved, x, rings, w, rope, pos, kw)
+        errs.setdefault("ocr_megastep", []).append(err)
+        errs.setdefault("ocr_megastep_step", []).append(rel)
+        return got
+
+    megastep.ocr_megastep = call
+    try:
+        yield
+    finally:
+        megastep.ocr_megastep = saved
+
+
+def ocr_engine(model, tok, flags: dict, dev, tokens: int = OCR_TOKENS):
+    from markushgrapher_torch.ocr.engine import ChemicalOCR, OCREngineConfig
+
+    return ChemicalOCR(model, tok, OCREngineConfig(
+        max_new_tokens=tokens, batch_size=OCR_BATCH, eos_id=-1, **flags),
+        device=str(dev))
+
+
+def drive_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
+    """One OCR path through ChemicalOCR.generate_batch_async on uint8 pages,
+    launch counts zeroed just before and read just after; every decode
+    kernel call (or megastep) of the first CHECKED_STEPS steps held to its
+    plain version on the same inputs."""
+    import torch
+
+    from markushgrapher_torch.ops import _build
+
+    eng = ocr_engine(model, tok, flags, dev)
+    errs: dict = {}
+    with checked_kernels(errs, CHECKED_STEPS * model.cfg.text.num_layers), \
+            checked_megastep(errs, CHECKED_STEPS):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ids = eng.generate_batch_async(pages)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    step_rel = errs.pop("ocr_megastep_step", [])
+    return dict(ids=ids, texts=eng.decode_ids(ids[:2]), launches=launches,
+                first_s=time.perf_counter() - t0, step_rel=step_rel,
+                inside={name: (max(e), len(e)) for name, e in errs.items()
+                        if e})
+
+
+def time_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
+    """Prefill ms, decode ms/step and img/s of one warm generate call (a
+    16-token call warms it up)."""
+    import torch
+
+    from markushgrapher_torch.data.device_pixels import ocr_from_uint8
+
+    ocr_engine(model, tok, flags, dev, 16).generate_batch_async(pages)
+    eng = ocr_engine(model, tok, flags, dev)
+    prompt = eng.prompt_ids[None].expand(pages.shape[0], -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(ocr_from_uint8(pages), prompt, OCR_TOKENS,
+                  quant_kv=True, int4=flags.get("int4_kv", False))
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eng.generate_batch_async(pages)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return dict(prefill_ms=pre_ms,
+                ms_per_step=(total * 1e3 - pre_ms) / (OCR_TOKENS - 1),
+                img_per_s=pages.shape[0] / total)
+
+
+def time_pipeline(ocr, mg, mt, cfg, pages, dev) -> dict:
+    """uint8 pages -> OCR (int4 KV) -> cells -> MG greedy int4, timed end to
+    end (warm models): img/s, the two stages' seconds, and how many rows
+    emitted loc-grammar cells (random weights: the others take seeded
+    fallback cells, as bench_e2e.py does)."""
+    import torch
+
+    from markushgrapher_torch.data.collator import DataCollator
+    from markushgrapher_torch.data.device_pixels import (ocsr_from_uint8,
+                                                         vtl_from_uint8)
+    from markushgrapher_torch.data.encode import SampleEncoder
+    from markushgrapher_torch.data.synthetic import page_cells
+    from markushgrapher_torch.decode.generate import generate
+    from markushgrapher_torch.models.markushgrapher import encoder_valid_max
+    from markushgrapher_torch.ocr.grammar import cells_from_prediction
+
+    eng = ocr_engine(ocr, mt.tokenizer, OCR_PATHS[0][1], dev)
+    enc = SampleEncoder(mt, max_seq_length=cfg.max_seq_length)
+    collate = DataCollator(max_length=cfg.max_seq_length)
+    rng = np.random.RandomState(SEED + 4)
+    mg.int4_cross = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, pix = eng.generate_batch_async(pages, return_pixels=True)
+    cells = [cells_from_prediction(text) for text in eng.decode_ids(ids)]
+    t_ocr = time.perf_counter() - t0
+    batch = collate([enc.encode_inputs(
+        c or page_cells(rng, cfg.vtl.image_size),
+        image_size=float(cfg.vtl.image_size)) for c in cells])
+    model_batch = {k: torch.as_tensor(batch[k], device=dev)
+                   for k in ("input_ids", "bbox", "attention_mask")}
+    model_batch["pixel_values"] = vtl_from_uint8(pix, cfg.vtl.image_size)
+    model_batch["ocsr_pixel_values"] = ocsr_from_uint8(pix,
+                                                       cfg.swin.image_size)
+    mv = encoder_valid_max(cfg, model_batch["bbox"],
+                           model_batch["attention_mask"])
+    out = generate(mg, model_batch, max_length=cfg.max_seq_length_decoder,
+                   eos_id=-1, cross_pack_len=-(-mv // 256) * 256)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    if out.shape != (pages.shape[0], cfg.max_seq_length_decoder):
+        raise AssertionError(f"pipeline: MG ids {tuple(out.shape)}")
+    return dict(img_per_s=pages.shape[0] / total, ocr_s=t_ocr,
+                mg_s=total - t_ocr, grammar_rows=sum(map(bool, cells)))
 
 
 def encoder_args(host: dict, dev) -> list:
@@ -522,6 +873,8 @@ def main() -> None:
     host = page_batch(cfg, batch, SEED, mt)
     pack, mv = cross_pack(cfg, host)
     kres = check_kernels(dev, pack)
+    ocr = ocr_model(dev)
+    kres.update(check_ocr_kernels(dev, ocr))
 
     # phase 4: the paths at full width, through Evaluator.generate_batch
     with torch.device(dev):
@@ -537,8 +890,8 @@ def main() -> None:
         res = drive_path(model, mt, cfg, host, int4, beams, steps)
         ids = res["ids"]
         dec = "decode_int4" if int4 else "decode_i8"
-        want = {"bias_build_i8": 1, "flash_i8": cfg.vtl.num_layers,
-                "decode_int4": 0, "decode_i8": 0}
+        want = {k: 0 for k in KERNELS}
+        want.update(bias_build_i8=1, flash_i8=cfg.vtl.num_layers)
         want[dec] = 2 * layers * steps
         print(f"{name}: {steps} steps, launches {res['launches']} (expected "
               f"{want}); first run {res['first_s']:.2f} s", flush=True)
@@ -573,6 +926,57 @@ def main() -> None:
     if not (e2e["masks_equal"] and e2e["finite"]):
         raise AssertionError("encoder mask differs or states not finite")
 
+    # phase 4, OCR: the three paths through ChemicalOCR.generate_batch
+    pages = torch.tensor(np.random.RandomState(SEED).randint(
+        0, 256, (OCR_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
+    tok = mt.tokenizer
+    t = ocr.cfg.text
+    l0 = ocr_prefix_len(ocr)
+    print(f"OCR slice: {sum(p.numel() for p in ocr.parameters()) / 1e6:.1f}M "
+          f"params bf16, batch {OCR_BATCH}, L0 {l0}, ring "
+          f"{l0 + OCR_TOKENS + (-(l0 + OCR_TOKENS)) % 128}", flush=True)
+    for name, flags, kname in OCR_PATHS:
+        res = drive_ocr_path(ocr, tok, pages, flags, dev)
+        ids = res["ids"]
+        want = {k: 0 for k in KERNELS}
+        want[kname] = (OCR_TOKENS - 1) * (
+            1 if kname == "ocr_megastep" else t.num_layers)
+        print(f"{name}: {OCR_TOKENS} tokens, launches {res['launches']} "
+              f"(expected {want}); first run {res['first_s']:.2f} s",
+              flush=True)
+        for kn, (err, n) in res["inside"].items():
+            print(f"  inside the model, {kn} vs plain on the same inputs: {n} "
+                  f"calls ({CHECKED_STEPS} decode steps"
+                  f"{', each layer by layer' if kn == 'ocr_megastep' else ''})"
+                  f", max abs err {err:.3e}, all within tolerance", flush=True)
+        if res["step_rel"]:
+            print(f"  whole megastep vs plain: relative L2 up to "
+                  f"{max(res['step_rel']):.3e} (gate {WHOLE_STEP_REL})",
+                  flush=True)
+        if res["launches"] != want:
+            raise AssertionError(f"{name}: launch counts {res['launches']} "
+                                 f"!= {want}")
+        if tuple(ids.shape) != (OCR_BATCH, OCR_TOKENS) or int(ids.min()) < 0 \
+                or int(ids.max()) >= t.vocab_size:
+            raise AssertionError(f"{name}: bad ids {tuple(ids.shape)}")
+        if set(res["inside"]) != {kname}:
+            raise AssertionError(f"{name}: kernels checked inside the model: "
+                                 f"{sorted(res['inside'])}")
+        for r, text in enumerate(res["texts"]):
+            print(f"  row {r}: {text[:120]!r}", flush=True)
+        for kn, n in res["launches"].items():
+            launches[kn] = launches.get(kn, 0) + n
+    ids_k = ocr_engine(ocr, tok, OCR_PATHS[0][1], dev,
+                       8).generate_batch_async(pages)
+    ocr.use_kernels = False
+    try:
+        ids_p = ocr_engine(ocr, tok, OCR_PATHS[0][1], dev,
+                           8).generate_batch_async(pages)
+    finally:
+        ocr.use_kernels = True
+    print(f"ocr_int4 end to end vs the plain path: first 8 tokens match "
+          f"{float((ids_k == ids_p).float().mean()):.3f}", flush=True)
+
     # phase 5: timing (warm), 512 steps, eos never firing
     hosts = {8: host}
     for label, int4, beams, sizes in (("greedy int4", True, 1, (8, 48)),
@@ -587,6 +991,18 @@ def main() -> None:
                   f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
                   f"steps, cross pack {t['cross_pack']}, peak "
                   f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
+    for name, flags, _ in OCR_PATHS:
+        t = time_ocr_path(ocr, tok, pages, flags, dev)
+        print(f"timing {name} b{OCR_BATCH}: prefill {t['prefill_ms']:.1f} ms, "
+              f"decode {t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.3f} "
+              f"img/s ({OCR_TOKENS} new tokens) on {card}", flush=True)
+    t = time_pipeline(ocr, model, mt, cfg, pages, dev)
+    print(f"timing pipeline b{OCR_BATCH} (pages -> OCR int4, {OCR_TOKENS} "
+          f"tokens -> cells -> MG greedy int4, "
+          f"{cfg.max_seq_length_decoder} steps): {t['img_per_s']:.3f} img/s "
+          f"(OCR {t['ocr_s']:.2f} s, MG {t['mg_s']:.2f} s; rows with "
+          f"grammar cells {t['grammar_rows']} of {OCR_BATCH}) on {card}",
+          flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **kres[name])

@@ -19,11 +19,17 @@
 // Bound: reading the slab, ~15 MB of packed K+V per call at B=8, Kp=1792
 // (8 * 1792 * 512 bytes per tensor), 48 calls per decode step. Design: one
 // block per (b, r) reads only its block's D nibbles (D bytes, one nibble
-// each, since G is even) of each key row; pass 1 (thread per key, 4-byte
-// loads) writes the scores to shared memory and finds the max, pass 2 turns
-// them into bf16-rounded p * vs and sums l, pass 3 splits the D output
-// columns over the threads and accumulates p * v down the keys (coalesced
-// row reads).
+// each) of each key row; pass 1 (thread per key, 4-byte loads) writes the
+// scores to shared memory and finds the max, pass 2 turns them into
+// bf16-rounded p * vs and sums l, pass 3 splits the D output columns over
+// the threads and accumulates p * v down the keys (coalesced row reads).
+//
+// Odd G (the OCR LM: 5 kv heads of D = 64, a 160-byte row): a block's slice
+// [g*D, g*D + D) can straddle the split at G*D/2 (head 2: elements 128..191).
+// Its first `split` elements are low nibbles of bytes g*D.., the rest high
+// nibbles of bytes from 0; pass 1 reads the two runs in turn (split is a
+// multiple of 4 when G*D/2 is), pass 3 picks each column's byte and nibble.
+// With G even every slice lies in one half and the arithmetic is unchanged.
 
 #include <cstdint>
 
@@ -59,8 +65,11 @@ decode_int4_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int half = G * D / 2;
   const int e0 = g * D;              // first element of this block's slice
-  const int shift = e0 >= half ? 4 : 0;
-  const int byte0 = e0 % half;       // D | half, so the slice shares a nibble
+  // elements [0, split) of the slice are low nibbles of bytes e0 + d, the
+  // rest high nibbles of bytes e0 + d - half
+  const int split = min(max(half - e0, 0), D);
+  const int lo0 = e0;
+  const int hi0 = e0 + split - half;
 
   for (int d = tid; d < D; d += kThreads)
     m.q[d] = __bfloat162float(q[(size_t)bh * D + d]);
@@ -73,13 +82,20 @@ decode_int4_kernel(const __nv_bfloat16* __restrict__ q,
   // pass 1: scores
   float lmax = -INFINITY;
   for (int k = tid; k < K; k += kThreads) {
-    const uint8_t* row = kq + ((size_t)b * K + k) * half + byte0;
+    const uint8_t* row = kq + ((size_t)b * K + k) * half;
     float dot = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(row + d);
+    for (int d = 0; d < split; d += 4) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(row + lo0 + d);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dot = fmaf(m.q[d + e], nibble((w >> (8 * e)) & 0xffu, shift), dot);
+        dot = fmaf(m.q[d + e], nibble((w >> (8 * e)) & 0xffu, 0), dot);
+    }
+    for (int d = split; d < D; d += 4) {
+      const uint32_t w =
+          *reinterpret_cast<const uint32_t*>(row + hi0 + (d - split));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dot = fmaf(m.q[d + e], nibble((w >> (8 * e)) & 0xffu, 4), dot);
     }
     const float s = __fadd_rn(__fmul_rn(dot, __bfloat162float(ks_row[k])),
                               brow[k]);
@@ -92,7 +108,10 @@ decode_int4_kernel(const __nv_bfloat16* __restrict__ q,
 
   // pass 3: out[d] = sum_k pv_k * v[k, d]
   const int groups = kThreads / D;
-  const uint8_t* col = vq + (size_t)b * K * half + byte0 + tid % D;
+  const int c = tid % D;
+  const uint8_t* col = vq + (size_t)b * K * half +
+                       (c < split ? lo0 + c : hi0 + (c - split));
+  const int shift = c < split ? 0 : 4;
   float acc = 0.f;
   for (int k = tid / D; k < K; k += groups)
     acc = fmaf(m.s[k], nibble(col[(size_t)k * half], shift), acc);
@@ -107,7 +126,8 @@ extern "C" int mg_decode_int4(const void* q, const uint8_t* kq, const void* ks,
                               int R, int G, int D, int K, int scale_rows,
                               int bias_bstride, int bias_rstride, int out_bf16,
                               void* out, void* stream) {
-  if (G % 2 != 0 || bad_shape(R, G, D, K, scale_rows, head_map))
+  // 4-byte loads of every row: the packed row G*D/2 is a multiple of 4
+  if ((G * D) % 8 != 0 || bad_shape(R, G, D, K, scale_rows, head_map))
     return (int)cudaErrorInvalidValue;
   decode_int4_kernel<<<B * R, kThreads, smem_bytes(D, K),
                        (cudaStream_t)stream>>>(

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
-(the two decode kernels share `decode_common.cuh`). At first use they are
+(the two decode kernels and the OCR megastep share `decode_common.cuh`). At first use they are
 compiled with nvcc for Hopper (`sm_90a`), one nvcc
 process per source, all started together, and linked into one shared
 library under `markushgrapher_torch/_build/` (named by a hash of the sources
@@ -30,14 +30,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
-           "decode_i8.cu")
+           "decode_i8.cu", "ocr_megastep.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
-# version, and the attention kernels keep IEEE division and expf
+# version, and the attention kernels keep IEEE division and expf. The
+# megastep's grid.sync() needs no -rdc (CUDA 11 and later).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
-                            "decode_int4": 0, "decode_i8": 0}
+                            "decode_int4": 0, "decode_i8": 0,
+                            "ocr_megastep": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -50,6 +52,10 @@ _SIGNATURES = {
     # bias_bstride, bias_rstride, out_bf16, out, stream
     "mg_decode_int4": [_P] * 7 + [_I] * 9 + [_P, _P],
     "mg_decode_i8": [_P] * 7 + [_I] * 9 + [_P, _P],
+    # x, out, scratch, rope, kq, ks, vq, vs, wqkv, sqkv, wo, so, wgu, sgu,
+    # wd, sd, ln_attn, ln_mlp, L, B, S, Dm, H, G, D, F, pos, eps,
+    # inv_sqrt_d, stream
+    "mg_ocr_megastep": [_P] * 18 + [_I] * 9 + [_F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

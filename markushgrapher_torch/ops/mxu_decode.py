@@ -133,10 +133,13 @@ def _launch(name: str, per_byte: int, scale_dtype: torch.dtype, q, kq, ks,
                          "[B, R, D] and two equal [B, K, width]")
     batch, kv_len, width = kq.shape
     rows, d = q.shape[1], q.shape[2]
-    if q.shape[0] != batch or width % d:
+    if q.shape[0] != batch or (width * per_byte) % d:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match K/V "
                          f"{tuple(kq.shape)} ({per_byte} values a byte)")
     groups = width * per_byte // d
+    if per_byte == 2 and width % 4:
+        raise ValueError(f"{name}: packed rows of {width} bytes; the kernel "
+                         "reads 4-byte words (G*D must be a multiple of 8)")
     if kq.dtype != torch.int8 or vq.dtype != torch.int8:
         raise ValueError(f"{name}: K/V must be int8")
     _row_groups(rows, groups, head_map)                     # validates
@@ -195,8 +198,9 @@ def cross_decode_mxu_int4(q: torch.Tensor, kq: torch.Tensor,
                           vs: torch.Tensor, bias: torch.Tensor,
                           head_map: Optional[Sequence[int]] = None
                           ) -> torch.Tensor:
-    """Packed int4 K/V [B, K, G*D/2] (G even); module docstring contract.
-    The kernel reads the scales in bf16."""
+    """Packed int4 K/V [B, K, G*D/2] (any G with G*D a multiple of 8; a
+    head's nibbles may straddle the column split when G is odd); module
+    docstring contract. The kernel reads the scales in bf16."""
     if q.device.type == "cpu":
         return plain_int4(q, kq, ks, vq, vs, bias, head_map)
     return _launch("decode_int4", 2, torch.bfloat16, q, kq, ks, vq, vs, bias,

@@ -1,18 +1,21 @@
-"""Where the time of an encode and of a decode step goes on the card.
+"""Where the time of an encode, a prefill and a decode step goes on the card.
 
-    python -m markushgrapher_torch.trace_paths [--out FILE]
+    python -m markushgrapher_torch.trace_paths [--stage all|mg|ocr] [--out FILE]
 
-Builds the flagship `MarkushGrapherConfig()` with seeded random bf16 weights
-on seeded synthetic pages (as `chip_smoke.py` does) and, for each serving
-path (greedy or beam-5, int4 or int8 KV) at the batch sizes below, decodes
-512 steps' worth of rings with eos never firing. Steps SKIP..SKIP+STEPS run
-twice: once untraced (host clock, synchronised at both ends) and once under
-`torch.profiler` with CPU and CUDA activities. One encode per batch size is
-traced the same way. For each window it prints one line: untraced and
-traced ms per step, CUDA kernels per step, the device busy share (the union
-of kernel intervals over the traced wall) and the device time by kind of
-kernel. `--out` also writes the windows as JSON, with the top kernels by
-name. Needs one CUDA device.
+MarkushGrapher (`--stage mg`): the flagship `MarkushGrapherConfig()` with
+seeded random bf16 weights on seeded synthetic pages (as `chip_smoke.py`
+does); for each serving path (greedy or beam-5, int4 or int8 KV) at the
+batch sizes below, 512 steps' worth of rings with eos never firing.
+ChemicalOCR (`--stage ocr`): `OCRConfig()` with seeded random bf16 weights
+on seeded uint8 pages at batch 8, through `ChemicalOCR.generate_batch`
+with 512 new tokens, along its three paths (int4 KV, int8 KV, megastep).
+Steps SKIP..SKIP+STEPS run twice: once untraced (host clock, synchronised
+at both ends) and once under `torch.profiler` with CPU and CUDA activities.
+One encode (MG) or prefill (OCR) per batch size is traced the same way. For
+each window it prints one line: untraced and traced ms per step, CUDA
+kernels per step, the device busy share (the union of kernel intervals over
+the traced wall) and the device time by kind of kernel. `--out` also writes
+the windows as JSON, with the top kernels by name. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -30,8 +33,16 @@ TOP = 12            # kernels by name kept per window in the JSON
 # (label, int4 KV, beams, batch sizes)
 PATHS = (("greedy int4", True, 1, (8, 48)), ("greedy int8", False, 1, (8, 48)),
          ("beam-5 int4", True, 5, (8, 16)), ("beam-5 int8", False, 5, (8, 16)))
+# (label, ChemicalOCR engine flags) at batch OCR_BATCH
+OCR_BATCH = 8
+OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
+                               quant_weights=True)),
+             ("ocr int8", dict(quant_kv=True, quant_weights=True)),
+             ("ocr megastep", dict(quant_kv=True, quant_weights=True,
+                                   megastep=True)))
 # device-time kinds, by the first substring of the kernel name that matches
-KINDS = (("decode attention", ("decode_i8_kernel", "decode_int4_kernel")),
+KINDS = (("ocr_megastep", ("ocr_megastep",)),
+         ("decode attention", ("decode_i8_kernel", "decode_int4_kernel")),
          ("flash_i8", ("flash_i8",)), ("bias_build_i8", ("bias_build",)),
          ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")),
          ("copy / fill", ("Memcpy", "Memset", "copy_", "fill_")),
@@ -87,19 +98,17 @@ def summarise(prof, wall_s: float, steps: int) -> Dict:
                 top_kernels_ms_per_step=per_step(by_name, TOP))
 
 
-def decode_window(model, enc, mask, pack, beams, traced) -> Tuple[float, object]:
-    """Run the decode loop until step SKIP + STEPS; returns the host
-    seconds of steps SKIP..SKIP+STEPS and the profiler (or None)."""
+def step_window(model, attr: str, run, traced) -> Tuple[float, object]:
+    """Call run(), a decode loop that calls model.<attr> once per step,
+    until step SKIP + STEPS; returns the host seconds of steps
+    SKIP..SKIP+STEPS and the profiler (or None)."""
     import torch
-
-    from markushgrapher_torch.decode.generate import (beam_generate,
-                                                      greedy_generate)
 
     prof = (torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA]) if traced else None)
-    own = "decode_step" in vars(model)      # an instance attribute to restore
-    inner = model.decode_step
+    own = attr in vars(model)               # an instance attribute to restore
+    inner = getattr(model, attr)
     state = {"n": 0}
 
     def step(*args, **kw):
@@ -117,26 +126,38 @@ def decode_window(model, enc, mask, pack, beams, traced) -> Tuple[float, object]
         state["n"] += 1
         return inner(*args, **kw)
 
-    model.decode_step = step
-    steps = model.cfg.max_seq_length_decoder
+    setattr(model, attr, step)
     try:
-        if beams == 1:
-            greedy_generate(model, enc, mask, steps, eos_id=-1,
-                            cross_pack_len=pack)
-        else:
-            beam_generate(model, enc, mask, steps, beams, eos_id=-1,
-                          cross_pack_len=pack)
+        run()
     except _WindowDone:
         pass
     finally:
         if own:
-            model.decode_step = inner
+            setattr(model, attr, inner)
         else:
-            del model.decode_step
+            delattr(model, attr)
     return state["wall"], prof
 
 
-def encode_window(model, args, traced) -> Tuple[float, object]:
+def decode_window(model, enc, mask, pack, beams, traced) -> Tuple[float, object]:
+    """The MarkushGrapher decode loop (greedy or beam search)."""
+    from markushgrapher_torch.decode.generate import (beam_generate,
+                                                      greedy_generate)
+
+    steps = model.cfg.max_seq_length_decoder
+    if beams == 1:
+        def run():
+            greedy_generate(model, enc, mask, steps, eos_id=-1,
+                            cross_pack_len=pack)
+    else:
+        def run():
+            beam_generate(model, enc, mask, steps, beams, eos_id=-1,
+                          cross_pack_len=pack)
+    return step_window(model, "decode_step", run, traced)
+
+
+def encode_window(encode, traced) -> Tuple[float, object]:
+    """One call of encode() (an MG encode or an OCR prefill)."""
     import torch
 
     prof = (torch.profiler.profile(activities=[
@@ -146,7 +167,7 @@ def encode_window(model, args, traced) -> Tuple[float, object]:
     if prof is not None:
         prof.start()
     t0 = time.perf_counter()
-    model.encode(*args)
+    encode()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if prof is not None:
@@ -158,25 +179,16 @@ def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stage", choices=("all", "mg", "ocr"), default="all")
     ap.add_argument("--out", default=None, help="write the windows as JSON")
-    out_path = ap.parse_args(argv).out
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("trace_paths: no CUDA device")
-    from markushgrapher_torch.config import MarkushGrapherConfig
     from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
-    from markushgrapher_torch.data.synthetic import page_batch
-    from markushgrapher_torch.eval_pipeline import MODEL_INPUTS
-    from markushgrapher_torch.models.markushgrapher import (
-        MarkushGrapherModel, encoder_valid_max)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = MarkushGrapherConfig()
-    with torch.device(dev):
-        model = MarkushGrapherModel(cfg)
-    model.init_weights(SEED)
-    model.to(torch.bfloat16).eval()
     mt = MarkushTokenizer()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -197,29 +209,89 @@ def main(argv=None) -> None:
               f"{res['kernels_per_step']:.0f} kernels, busy share "
               f"{res['busy_share']:.3f}; device ms: {kinds}", flush=True)
 
-    batches = sorted({b for *_, sizes in PATHS for b in sizes})
     with torch.no_grad():
-        for b in batches:
-            host = page_batch(cfg, b, SEED + b, mt)
-            args = [torch.as_tensor(host[k], device=dev)
-                    for k in MODEL_INPUTS]
-            mv = encoder_valid_max(cfg, args[1], args[2])
-            pack = -(-mv // 256) * 256
-            encode_window(model, args, False)                 # warm
-            wall, _ = encode_window(model, args, False)
-            record(f"encode b{b}", wall, encode_window(model, args, True), 1)
-            enc, mask = model.encode(*args)
-            for label, int4, beams, sizes in PATHS:
-                if b not in sizes:
-                    continue
-                model.int4_cross = int4
-                wall, _ = decode_window(model, enc, mask, pack, beams, False)
-                record(f"{label} b{b} decode steps {SKIP}-{SKIP + STEPS}",
-                       wall, decode_window(model, enc, mask, pack, beams,
-                                           True), STEPS)
-    if out_path:
-        with open(out_path, "w") as f:
+        if args.stage in ("all", "mg"):
+            trace_mg(dev, mt, record)
+        if args.stage in ("all", "ocr"):
+            trace_ocr(dev, mt, record)
+    if args.out:
+        with open(args.out, "w") as f:
             json.dump({"device": card, "windows": windows}, f, indent=1)
+
+
+def trace_mg(dev, mt, record) -> None:
+    import torch
+
+    from markushgrapher_torch.config import MarkushGrapherConfig
+    from markushgrapher_torch.data.synthetic import page_batch
+    from markushgrapher_torch.eval_pipeline import MODEL_INPUTS
+    from markushgrapher_torch.models.markushgrapher import (
+        MarkushGrapherModel, encoder_valid_max)
+
+    cfg = MarkushGrapherConfig()
+    with torch.device(dev):
+        model = MarkushGrapherModel(cfg)
+    model.init_weights(SEED)
+    model.to(torch.bfloat16).eval()
+    for b in sorted({b for *_, sizes in PATHS for b in sizes}):
+        host = page_batch(cfg, b, SEED + b, mt)
+        args = [torch.as_tensor(host[k], device=dev) for k in MODEL_INPUTS]
+        mv = encoder_valid_max(cfg, args[1], args[2])
+        pack = -(-mv // 256) * 256
+
+        def encode(args=args):
+            model.encode(*args)
+
+        encode_window(encode, False)                          # warm
+        wall, _ = encode_window(encode, False)
+        record(f"encode b{b}", wall, encode_window(encode, True), 1)
+        enc, mask = model.encode(*args)
+        for label, int4, beams, sizes in PATHS:
+            if b not in sizes:
+                continue
+            model.int4_cross = int4
+            wall, _ = decode_window(model, enc, mask, pack, beams, False)
+            record(f"{label} b{b} decode steps {SKIP}-{SKIP + STEPS}", wall,
+                   decode_window(model, enc, mask, pack, beams, True), STEPS)
+
+
+def trace_ocr(dev, mt, record) -> None:
+    import numpy as np
+    import torch
+
+    from markushgrapher_torch.data.device_pixels import ocr_from_uint8
+    from markushgrapher_torch.ocr.engine import ChemicalOCR, OCREngineConfig
+    from markushgrapher_torch.ocr.vlm import ChemicalOCRModel, OCRConfig
+
+    tokens = 512
+    with torch.device(dev):
+        model = ChemicalOCRModel(OCRConfig(max_new_tokens=tokens))
+    model.init_weights(SEED)
+    model.to(torch.bfloat16).eval()
+    pages = torch.tensor(np.random.RandomState(SEED).randint(
+        0, 256, (OCR_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
+    for label, flags in OCR_PATHS:
+        eng = ChemicalOCR(model, mt.tokenizer, OCREngineConfig(
+            max_new_tokens=tokens, batch_size=OCR_BATCH, eos_id=-1, **flags),
+            device=str(dev))
+        prompt = eng.prompt_ids[None].expand(OCR_BATCH, -1)
+
+        def prefill(flags=flags):
+            model.prefill(ocr_from_uint8(pages), prompt, tokens,
+                          quant_kv=True, int4=flags.get("int4_kv", False))
+
+        encode_window(prefill, False)                         # warm
+        wall, _ = encode_window(prefill, False)
+        record(f"{label} prefill b{OCR_BATCH}", wall,
+               encode_window(prefill, True), 1)
+        attr = "decode_step_mega" if flags.get("megastep") else "decode_step"
+
+        def run(eng=eng):
+            eng.generate_batch_async(pages)
+
+        wall, _ = step_window(model, attr, run, False)
+        record(f"{label} b{OCR_BATCH} decode steps {SKIP}-{SKIP + STEPS}",
+               wall, step_window(model, attr, run, True), STEPS)
 
 
 if __name__ == "__main__":

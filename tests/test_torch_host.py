@@ -1,6 +1,7 @@
 """The port's own copies of the host modules (tokenizer, CXSMILES parser,
-chemistry scoring, dataset encoding and collator) give the same results as
-the JAX package's originals on the same synthetic samples. Neither side needs
+chemistry scoring, dataset encoding and collator, OCR grammar) give the same
+results as the JAX package's originals on the same synthetic samples and OCR
+strings. Neither side needs
 rdkit or nltk: where those are installed both copies use them, where not
 both take the same pure-Python fallbacks."""
 
@@ -15,12 +16,14 @@ from markushgrapher_tpu.data import collator as j_coll
 from markushgrapher_tpu.data import dataset as j_ds
 from markushgrapher_tpu.data import markush_tokenizer as j_mt
 from markushgrapher_tpu.data import synthetic as j_syn
+from markushgrapher_tpu.ocr import grammar as j_gram
 from markushgrapher_torch.chem import cxsmiles as t_cx
 from markushgrapher_torch.chem import evaluation as t_eval
 from markushgrapher_torch.data import collator as t_coll
 from markushgrapher_torch.data import dataset as t_ds
 from markushgrapher_torch.data import markush_tokenizer as t_mt
 from markushgrapher_torch.data import synthetic as t_syn
+from markushgrapher_torch.ocr import grammar as t_gram
 
 N = 4
 T, DEC = 128, 64
@@ -85,3 +88,25 @@ def test_host_copy_matches_jax(sides, idx):
     for key, arr in want.items():
         assert got[key].dtype == arr.dtype, key
         np.testing.assert_array_equal(got[key], arr, err_msg=key)
+
+
+OCR_STRINGS = [
+    "noise<ocr><loc_0><loc_0><loc_500><loc_500><loc_10><loc_20><loc_110>"
+    "<loc_45>R1\n<loc_200><loc_300><loc_400><loc_350>halogen</ocr>tail",
+    "<ocr>0>0>500>500>10>20>110>45>R1\n200>300>400>350>halogen</ocr>",
+    "<ocr>12>40>88>61>OMe\nbroken line\n1>2>3>x</ocr>",
+    "no boxes here at all", "",
+]
+
+
+@pytest.mark.parametrize("text", OCR_STRINGS)
+def test_ocr_grammar_copy_matches_jax(text):
+    """The port's copy of ocr/grammar.py: same cleaned text, parse, cells
+    and rendered targets (both formats)."""
+    assert t_gram.clean_ocr_text(text) == j_gram.clean_ocr_text(text)
+    assert t_gram.parse_ocr_string(text) == j_gram.parse_ocr_string(text)
+    cells = j_gram.cells_from_prediction(text)
+    assert t_gram.cells_from_prediction(text) == cells
+    for fmt in ("loc", "gt"):
+        assert t_gram.render_ocr_target(cells, fmt) == \
+            j_gram.render_ocr_target(cells, fmt)

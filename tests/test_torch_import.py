@@ -55,8 +55,25 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.ops.flash_attention",
                  "markushgrapher_torch.ops.mxu_decode",
                  "markushgrapher_torch.data.markush_tokenizer",
-                 "markushgrapher_torch.chem.evaluation"):
+                 "markushgrapher_torch.chem.evaluation",
+                 "markushgrapher_torch.data.device_pixels",
+                 "markushgrapher_torch.ocr.grammar",
+                 "markushgrapher_torch.ocr.vlm",
+                 "markushgrapher_torch.ocr.engine",
+                 "markushgrapher_torch.ops.megastep"):
         assert name in out["modules"]
+
+
+def test_build_compiles_every_kernel_source():
+    """Every CUDA source of the port is in the build list, and every kernel
+    of the build has a launch counter."""
+    from markushgrapher_torch.ops import _build
+
+    sources = sorted(os.listdir(os.path.join(REPO, "markushgrapher_torch",
+                                             "csrc")))
+    assert sorted(_build.SOURCES) == [s for s in sources if s.endswith(".cu")]
+    assert sorted(_build.LAUNCHES) == sorted(
+        s[:-3] for s in _build.SOURCES)
 
 
 def _imported_roots(path):

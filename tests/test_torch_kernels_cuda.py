@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from markushgrapher_torch.ops import _build, bias_build, flash_attention
-from markushgrapher_torch.ops import mxu_decode
+from markushgrapher_torch.ops import megastep, mxu_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -25,13 +25,19 @@ def dev():
     return torch.device("cuda")
 
 
-def test_main_path_shapes(dev):
-    """Each kernel at the main path's shapes, with chip_smoke's tolerances."""
+@pytest.fixture(scope="module")
+def chip_smoke():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke
 
+    return chip_smoke
+
+
+def test_main_path_shapes(dev, chip_smoke):
+    """Each kernel at the main path's shapes, with chip_smoke's tolerances."""
     res = chip_smoke.check_kernels(dev, pack=1280)
+    res.update(chip_smoke.check_ocr_kernels(dev, chip_smoke.ocr_model(dev)))
     assert set(res) == set(chip_smoke.KERNELS)
 
 
@@ -164,3 +170,114 @@ def test_wrappers_count_and_refuse(dev):
                                  device=dev),
             torch.ones(2, device=dev), torch.ones((1, 64), device=dev))
     assert _build.LAUNCHES["flash_i8"] == 0
+
+
+@pytest.mark.parametrize("groups,d", [(5, 64), (3, 16), (5, 8)])
+def test_decode_int4_odd_groups(dev, groups, d):
+    """Odd kv-head counts: a head's D nibbles straddle the column split at
+    G*D/2 (5 x 64: head 2; 3 x 16: head 1; 5 x 8: head 2), 15 query rows
+    grouped over them, the self ring's causal bias and zero tail."""
+    rng = np.random.RandomState(groups * d)
+    B, R, K, step = 3, 15, 640, 400
+    q = torch.tensor(rng.randn(B, R, d), device=dev).to(torch.bfloat16)
+    vals = rng.randint(-7, 8, (2, B, K, groups * d))
+    vals[:, :, step + 1:] = 0
+    kq, vq = (mxu_decode.pack_int4(torch.tensor(v, dtype=torch.int8,
+                                                device=dev)) for v in vals)
+    sc = rng.rand(2, B, groups, K) * 0.2
+    sc[:, :, :, step + 1:] = 0
+    ks, vs = (torch.tensor(s_, device=dev).to(torch.bfloat16) for s_ in sc)
+    bias = torch.full((1, 1, K), torch.finfo(torch.float32).min, device=dev)
+    bias[..., :step + 1] = 0.0
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu_int4(q, kq, ks, vq, vs, bias)
+    assert _build.LAUNCHES["decode_int4"] == 1
+    ref = mxu_decode.plain_int4(q, kq, ks, vq, vs, bias)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def _mega_inputs(dev, n_layers, b, dm, heads, groups, d, f, ring, pos, seed):
+    """Random int8 weights (per-channel scales ~ 1/sqrt(fan-in) / 127), a
+    ring whose columns < pos hold int8 codes and scales, bf16 x."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(shape, fan_in):
+        return (torch.rand(shape, generator=g, device=dev) + 0.5) * (
+            3 ** 0.5 / 127 / fan_in ** 0.5)
+
+    dq, dkv = heads * d, groups * d
+    nqkv = dq + 2 * dkv
+    w = {"wqkv": codes(n_layers, nqkv, dm),
+         "sqkv": scales((n_layers, nqkv), dm),
+         "wo": codes(n_layers, dm, dq), "so": scales((n_layers, dm), dq),
+         "wgu": codes(n_layers, 2 * f, dm),
+         "sgu": scales((n_layers, 2 * f), dm),
+         "wd": codes(n_layers, dm, f), "sd": scales((n_layers, dm), f),
+         "ln_attn": 1 + 0.1 * torch.randn((n_layers, dm), generator=g,
+                                          device=dev),
+         "ln_mlp": 1 + 0.1 * torch.randn((n_layers, dm), generator=g,
+                                         device=dev)}
+    rings = {}
+    for name in ("k", "v"):
+        vals = codes(n_layers, b, ring, dkv)
+        vals[:, :, pos:] = 0
+        sc = torch.rand((n_layers, b, groups, ring), generator=g,
+                        device=dev) * 0.03
+        sc[..., pos:] = 0
+        rings[name + "_q"], rings[name + "_s"] = vals, sc
+    x = torch.randn((b, dm), generator=g, device=dev).to(torch.bfloat16)
+    return x, rings, w
+
+
+@pytest.mark.parametrize("pos", [1, 150])
+def test_megastep_matches_plain(dev, chip_smoke, pos):
+    """ocr_megastep against plain_megastep: one layer at a time (the plain
+    output chained as the next input) within chip_smoke's tolerance, the
+    ring column `pos` within one int8 step, and the two-layer step."""
+    from markushgrapher_torch.ocr.vlm import rope_frequencies
+
+    heads, groups, d = 6, 2, 32
+    x, rings, w = _mega_inputs(dev, 2, 3, 192, heads, groups, d, 256, 256,
+                               pos, 7)
+    rope = rope_frequencies(d, 512, 1e5).to(dev)
+    kw = dict(heads=heads, groups=groups, rms_eps=1e-5)
+    ring_k = {k: v.clone() for k, v in rings.items()}
+    ring_p = {k: v.clone() for k, v in rings.items()}
+    _build.reset_launches()
+    got = megastep.ocr_megastep(x, ring_k, w, rope, pos, **kw)
+    assert _build.LAUNCHES["ocr_megastep"] == 1
+    ref = megastep.plain_megastep(x, ring_p, w, rope, pos, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=3e-2)
+    for k in ("k_q", "v_q"):
+        diff = (ring_k[k].int() - ring_p[k].int()).abs()
+        assert int(diff[:, :, :pos].max()) == 0
+        assert int(diff[:, :, pos].max()) <= 1
+    for k in ("k_s", "v_s"):
+        torch.testing.assert_close(ring_k[k], ring_p[k], rtol=1e-3, atol=0)
+    xin = x
+    for layer in range(2):
+        one = {k: t[layer:layer + 1] for k, t in w.items()}
+        rk = {k: t[layer:layer + 1].clone() for k, t in rings.items()}
+        rp = {k: t[layer:layer + 1].clone() for k, t in rings.items()}
+        got = megastep.ocr_megastep(xin, rk, one, rope, pos, **kw)
+        ref = megastep.plain_megastep(xin, rp, one, rope, pos, **kw)
+        atol, rtol = chip_smoke.TOL["ocr_megastep"]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        xin = ref
+
+
+def test_megastep_refuses_before_launch(dev):
+    x, rings, w = _mega_inputs(dev, 1, 2, 64, 4, 2, 16, 64, 128, 10, 1)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="position"):
+        megastep.ocr_megastep(x, rings, w, torch.zeros((8, 8, 2),
+                                                       device=dev), 10,
+                              heads=4, groups=2, rms_eps=1e-5)
+    assert _build.LAUNCHES["ocr_megastep"] == 0
