@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU: the
-MarkushGrapher stage, the ChemicalOCR stage, and the two in a pipeline.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: the MarkushGrapher
+stage, the ChemicalOCR stage, the two in a pipeline, and MarkushGrapher
+training.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,10 @@ prints no result):
    computes the same function, that call's time. The OCR shapes: the
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
    p = L0 + 400; decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv
-   heads) over that ring;
+   heads) over that ring. The float-bias flash forward at its serving shape
+   (B=2) and forward + both backward kernels at the training shape (B=8),
+   L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
+   SDPA with the bias as attn_mask as the library yardstick;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
    never firing, along four paths: greedy under int4 KV for 512 steps, beam-5
@@ -39,7 +43,16 @@ prints no result):
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
    fallback cells where random weights emit none) -> SampleEncoder /
    DataCollator with pixels from `data.device_pixels` -> MG greedy int4,
-   512 steps at batch 8, in img/s.
+   512 steps at batch 8, in img/s;
+6. training: MarkushGrapherConfig() (866.7M parameters) through
+   `Trainer.train_step` at batch 8 on seeded labelled pages (512 text +
+   1024 patch positions, 512 decoder positions), TrainConfig from
+   configs/train.yaml without accumulation: bf16 compute over float32
+   master weights, remat, dropout, the Swin frozen. One step holds every
+   flash forward / recompute / backward call to its plain version, then 2
+   warm and 5 timed steps: loss and grad norm per step (finite), ms/step,
+   ex/s, peak memory; launch counts of the 8 steps (48 forward, 24 dkv and
+   24 dq launches per step).
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and `{"ok": true, "device": {...}}`.
@@ -48,7 +61,9 @@ describing the kernels, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,7 +82,17 @@ KERNELS = {
                   "markushgrapher_tpu/ops/mxu_decode.py:351"),
     "ocr_megastep": ("markushgrapher_torch/csrc/ocr_megastep.cu",
                      "markushgrapher_tpu/ops/megastep.py:363"),
+    # the float-bias forward is also the forward of the stock trainable
+    # Pallas flash attention called at models/t5.py:380; the backward
+    # kernels replace that call's bwd_dkv and bwd_dq
+    "flash_bias": ("markushgrapher_torch/csrc/flash_bias.cu",
+                   "markushgrapher_tpu/ops/flash_attention.py:63"),
+    "flash_bias_dkv": ("markushgrapher_torch/csrc/flash_bias_bwd.cu",
+                       "markushgrapher_tpu/models/t5.py:380"),
+    "flash_bias_dq": ("markushgrapher_torch/csrc/flash_bias_bwd.cu",
+                      "markushgrapher_tpu/models/t5.py:380"),
 }
+FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -94,8 +119,20 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 # where they gate the attention output before the o-projection and the
 # residual add.
 TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
-       "decode_i8": (2e-3, 2e-2), "ocr_megastep": (8e-3, 1.6e-2)}
+       "decode_i8": (2e-3, 2e-2), "ocr_megastep": (8e-3, 1.6e-2),
+       "flash_bias": (1e-3, 1.6e-2)}
 WHOLE_STEP_REL = 2e-2
+# flash_bias also returns the float32 log-sum-exp of each row, summed in
+# float32 by both versions: |kernel - plain| <= 1e-4 + 1e-5 * |plain|.
+# The backward kernels return bf16 dq / dk / dv and d(bias), from products
+# whose operands P and dS are rounded to bf16 (the plain version keeps them
+# float32): each output within GRAD_ULPS bf16 ulps (2^-7 relative) of its
+# largest magnitude, and within GRAD_REL relative L2.
+LSE_TOL = (1e-4, 1e-5)
+GRAD_ULPS, GRAD_REL = 4, 1e-2
+# the training phase: per-device batch, warm and timed steps after the one
+# step whose every flash call is held to its plain version
+TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 8, 2, 5
 # phase 4's paths at batch 8: (name, int4 KV, beams, decode steps)
 PATHS = (("greedy_int4", True, 1, 512), ("beam5_int4", True, 5, 512),
          ("greedy_int8", False, 1, 512), ("beam5_int8", False, 5, 128))
@@ -333,6 +370,151 @@ def check_kernels(dev, pack: int) -> dict:
         sargs = (query(rows, H), rk, rks, rv, rvs, self_bias(ring, step))
         report(name, f"self rows={rows} R={H} S={ring} step={step}",
                decode_run(name, kernel, plain, sargs, {}))
+    return out
+
+
+def lse_within(got, ref) -> float:
+    """flash_bias's log-sum-exp against the plain one, within LSE_TOL."""
+    import torch
+
+    err = (got - ref).abs()
+    atol, rtol = LSE_TOL
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > atol + rtol * ref.abs()).any()):
+        raise AssertionError(f"flash_bias lse: max abs err "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def grad_within(name: str, got, ref) -> float:
+    """A bf16 gradient of a backward kernel against its plain version on the
+    same inputs: max |got - ref| within GRAD_ULPS bf16 ulps of max |ref| and
+    relative L2 within GRAD_REL; returns the max abs error."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    err, top = float((g - r).abs().max()), float(r.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 1e-30
+    rel = float((g - r).norm() / max(float(r.norm()), 1e-30))
+    if not bool(torch.isfinite(g).all()) or err > GRAD_ULPS * ulp \
+            or rel > GRAD_REL:
+        raise AssertionError(
+            f"{name}: max abs err {err:.3e} = {err / ulp:.2f} ulps of max "
+            f"|plain| {top:.3e} (gate {GRAD_ULPS}), relative L2 {rel:.3e} "
+            f"(gate {GRAD_REL})")
+    return err
+
+
+def flash_bias_inputs(dev, batch: int, seed: int):
+    """bf16 q, k, v, dO [B, 1536, 16, 64] and a bf16 bias [B, 16, 1536,
+    1536]: N(0, 0.5^2) with the last 25 % of the keys at -1e9, as the
+    training slab masks padding."""
+    import torch
+
+    L, H, D = 1536, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    q, k = randn((batch, L, H, D), 0.3), randn((batch, L, H, D), 0.3)
+    v, do = randn((batch, L, H, D), 1.0), randn((batch, L, H, D), 0.1)
+    bias = torch.randn((batch, H, L, L), generator=gen, device=dev) * 0.5
+    bias[..., int(L * 0.75):] = -1e9
+    return q, k, v, bias.to(torch.bfloat16), do
+
+
+def check_flash_bias(dev) -> dict:
+    """The float-bias flash kernels against their plain versions: the
+    forward at row 3's serving shape (B=2) and forward + both backward
+    kernels at the training shape (B=8), both L=1536, H=16, D=64, bf16
+    bias. Library yardstick: SDPA with the bias as attn_mask and scale 1,
+    forward, and forward + backward with a grad-requiring mask (its backward
+    computes dq, dk, dv and d(mask) in one; reported for both backward
+    kernels). Returns the training shape's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from markushgrapher_torch.ops import flash_attention as fa
+
+    H, L, D = 16, 1536, 64
+    q, k, v, bias, _ = flash_bias_inputs(dev, 2, SEED + 5)
+    got = fa.flash_attention_bias(q, k, v, bias)
+    ref = fa.plain_bias(q, k, v, bias)
+    torch.cuda.synchronize()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    report("flash_bias", f"row 3 serving B=2 H={H} L={L} D={D} bf16 bias",
+           dict(max_abs_err=within("flash_bias", got, ref),
+                ms=cuda_ms(lambda: fa.flash_attention_bias(q, k, v, bias)),
+                plain_ms=cuda_ms(lambda: fa.plain_bias(q, k, v, bias), 5, 1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias, scale=1.0)),
+                **bound(nbytes(q, k, v, bias, got), 4 * 2 * H * L * L * D)))
+    del q, k, v, bias, got, ref, qt, kt, vt
+
+    B = TRAIN_BATCH
+    q, k, v, bias, do = flash_bias_inputs(dev, B, SEED + 6)
+    o, lse = fa.flash_bias_fwd(q, k, v, bias)
+    o_ref, lse_ref = fa.plain_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    fwd_err = within("flash_bias", o, o_ref)
+    lse_err = lse_within(lse, lse_ref)
+    del o_ref, lse_ref
+    di = (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, bias, do, lse, di)
+    dk, dv = fa.flash_bias_dkv(*bwd)
+    dk_r, dv_r = fa.plain_bwd_dkv(*bwd)
+    dkv_err = max(grad_within("flash_bias_dkv dk", dk, dk_r),
+                  grad_within("flash_bias_dkv dv", dv, dv_r))
+    del dk_r, dv_r
+    dq, ds = fa.flash_bias_dq(*bwd)
+    dq_r, ds_r = fa.plain_bwd_dq(*bwd)
+    dq_err = max(grad_within("flash_bias_dq dq", dq, dq_r),
+                 grad_within("flash_bias_dq dbias", ds, ds_r))
+    del dq_r, ds_r
+    torch.cuda.synchronize()
+
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    grads = [t.detach().clone().requires_grad_()
+             for t in (qt, kt, vt, bias)]
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*grads[:3], attn_mask=grads[3],
+                                             scale=1.0)
+        torch.autograd.grad(out, grads, dot)
+
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias, scale=1.0))
+    lib_bwd = cuda_ms(sdpa_fwd_bwd, 5, 1) - lib_fwd
+    flops = B * H * L * L * D
+    out = {
+        "flash_bias": dict(
+            max_abs_err=fwd_err,
+            ms=cuda_ms(lambda: fa.flash_bias_fwd(q, k, v, bias)),
+            plain_ms=cuda_ms(lambda: fa.plain_fwd(q, k, v, bias), 3, 1),
+            library_ms=lib_fwd,
+            **bound(nbytes(q, k, v, bias, o, lse), 4 * flops)),
+        "flash_bias_dkv": dict(
+            max_abs_err=dkv_err,
+            ms=cuda_ms(lambda: fa.flash_bias_dkv(*bwd)),
+            plain_ms=cuda_ms(lambda: fa.plain_bwd_dkv(*bwd), 3, 1),
+            library_ms=lib_bwd,
+            **bound(nbytes(*bwd, dk, dv), 8 * flops)),
+        "flash_bias_dq": dict(
+            max_abs_err=dq_err,
+            ms=cuda_ms(lambda: fa.flash_bias_dq(*bwd)),
+            plain_ms=cuda_ms(lambda: fa.plain_bwd_dq(*bwd), 3, 1),
+            library_ms=lib_bwd,
+            **bound(nbytes(*bwd, dq, ds), 6 * flops)),
+    }
+    shape = f"train B={B} H={H} L={L} D={D} bf16 bias"
+    report("flash_bias", f"{shape}; lse max abs err {lse_err:.3e}",
+           out["flash_bias"])
+    report("flash_bias_dkv", f"{shape} (library: SDPA backward)",
+           out["flash_bias_dkv"])
+    report("flash_bias_dq", f"{shape}, d(bias) bf16 (library: SDPA "
+           f"backward)", out["flash_bias_dq"])
     return out
 
 
@@ -838,6 +1020,143 @@ def time_path(model, mt, cfg, host: dict, dev, int4: bool,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def train_config():
+    """(TrainConfig, frozen prefixes) of configs/train.yaml, with the
+    per-device batch TRAIN_BATCH and no gradient accumulation."""
+    import dataclasses
+    import os
+
+    from markushgrapher_torch.arguments import train_settings
+
+    tcfg, frozen = train_settings(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "configs", "train.yaml"))
+    return dataclasses.replace(tcfg, per_device_batch_size=TRAIN_BATCH,
+                               gradient_accumulation_steps=1), frozen
+
+
+@contextlib.contextmanager
+def checked_flash(errs: dict):
+    """Route every call of the three float-bias flash wrappers (the
+    trainable op's forward, recompute and backward) through a check against
+    its plain version on the same inputs; errs[name] collects the max abs
+    error of each call. The plain versions launch no kernel."""
+    from markushgrapher_torch.ops import flash_attention as fa
+
+    saved = fa.flash_bias_fwd, fa.flash_bias_dkv, fa.flash_bias_dq
+
+    def fwd(q, k, v, bias):
+        out, lse = saved[0](q, k, v, bias)
+        ref, ref_lse = fa.plain_fwd(q, k, v, bias)
+        errs["flash_bias"].append(within("flash_bias", out, ref))
+        lse_within(lse, ref_lse)
+        return out, lse
+
+    def dkv(*args):
+        dk, dv = saved[1](*args)
+        rk, rv = fa.plain_bwd_dkv(*args)
+        errs["flash_bias_dkv"].append(max(
+            grad_within("flash_bias_dkv dk", dk, rk),
+            grad_within("flash_bias_dkv dv", dv, rv)))
+        return dk, dv
+
+    def dq(*args):
+        dq_, ds = saved[2](*args)
+        rq, rs = fa.plain_bwd_dq(*args)
+        errs["flash_bias_dq"].append(max(
+            grad_within("flash_bias_dq dq", dq_, rq),
+            grad_within("flash_bias_dq dbias", ds, rs)))
+        return dq_, ds
+
+    fa.flash_bias_fwd, fa.flash_bias_dkv, fa.flash_bias_dq = fwd, dkv, dq
+    try:
+        yield
+    finally:
+        fa.flash_bias_fwd, fa.flash_bias_dkv, fa.flash_bias_dq = saved
+
+
+def drive_training(dev, card: str) -> dict:
+    """MarkushGrapherConfig() trained through Trainer.train_step on seeded
+    labelled pages (data.synthetic.labelled_batch: 512 text + 1024 patch
+    positions, 512 decoder positions), TrainConfig from configs/train.yaml
+    at batch TRAIN_BATCH without accumulation (bf16 compute over float32
+    master weights, remat, the Swin frozen). Launch counts zeroed just
+    before the first step and read after the last; the first step holds
+    every flash call to its plain version; then TRAIN_WARM warm and
+    TRAIN_TIMED timed steps. Returns the launch counts."""
+    import torch
+
+    from markushgrapher_torch.config import MarkushGrapherConfig
+    from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
+    from markushgrapher_torch.data.synthetic import labelled_batch
+    from markushgrapher_torch.models.markushgrapher import MarkushGrapherModel
+    from markushgrapher_torch.ops import _build
+    from markushgrapher_torch.train.trainer import Trainer
+
+    cfg = MarkushGrapherConfig()
+    tcfg, frozen = train_config()
+    batch = labelled_batch(cfg, TRAIN_BATCH, SEED, MarkushTokenizer())
+    with torch.device(dev):
+        model = MarkushGrapherModel(cfg)
+    trainer = Trainer(model=model, cfg=tcfg, frozen_prefixes=frozen)
+    state = trainer.init_state(SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_frozen = n_params - sum(p.numel() for p in state.opt.params)
+    length = cfg.max_seq_length + cfg.vtl.num_patches
+    print(f"training slice: {n_params / 1e6:.1f}M float32 master params "
+          f"({n_frozen / 1e6:.1f}M frozen: {frozen}), {tcfg.dtype} compute, "
+          f"remat {tcfg.remat}, dropout {cfg.vtl.dropout_rate}, batch "
+          f"{TRAIN_BATCH}, VTL L={length}, decoder "
+          f"{cfg.max_seq_length_decoder}, labels per row "
+          f"{(batch['labels'] != -100).sum(1).tolist()}", flush=True)
+    errs = {name: [] for name in FLASH_BIAS}
+    losses, norms, times = [], [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with checked_flash(errs):
+        state, m = trainer.train_step(state, batch, SEED)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        if i == TRAIN_WARM:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch, SEED)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARM:
+            times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    layers, steps = cfg.vtl.num_layers, 1 + TRAIN_WARM + TRAIN_TIMED
+    per_step = {"flash_bias": (2 if tcfg.remat else 1) * layers,
+                "flash_bias_dkv": layers, "flash_bias_dq": layers}
+    want = {k: 0 for k in KERNELS}
+    want.update({k: n * steps for k, n in per_step.items()})
+    for name, e in errs.items():
+        print(f"  inside the training step, {name} vs plain on the same "
+              f"inputs: {len(e)} calls, max abs err {max(e):.3e}, all within "
+              f"tolerance", flush=True)
+    print(f"training: {steps} steps, launches {launches} (expected {want}); "
+          f"loss per step {[round(x, 4) for x in losses]}, grad norm "
+          f"{[round(x, 3) for x in norms]}", flush=True)
+    if launches != want:
+        raise AssertionError(f"training: launch counts {launches} != {want}")
+    if {k: len(e) for k, e in errs.items()} != per_step:
+        raise AssertionError(f"training: checked calls "
+                             f"{ {k: len(e) for k, e in errs.items()} } != "
+                             f"{per_step}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"training: non-finite loss or grad norm")
+    ms = 1e3 * sum(times) / len(times)
+    print(f"timing training b{TRAIN_BATCH}: {ms:.1f} ms/step (min "
+          f"{1e3 * min(times):.1f}, max {1e3 * max(times):.1f} over "
+          f"{len(times)} steps), {TRAIN_BATCH / (ms / 1e3):.3f} ex/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated on "
+          f"{card}", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -875,6 +1194,7 @@ def main() -> None:
     kres = check_kernels(dev, pack)
     ocr = ocr_model(dev)
     kres.update(check_ocr_kernels(dev, ocr))
+    kres.update(check_flash_bias(dev))
 
     # phase 4: the paths at full width, through Evaluator.generate_batch
     with torch.device(dev):
@@ -1003,6 +1323,13 @@ def main() -> None:
           f"(OCR {t['ocr_s']:.2f} s, MG {t['mg_s']:.2f} s; rows with "
           f"grammar cells {t['grammar_rows']} of {OCR_BATCH}) on {card}",
           flush=True)
+
+    # phase 6: training at full width through Trainer.train_step
+    del model, ocr
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in drive_training(dev, card).items():
+        launches[name] = launches.get(name, 0) + n
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **kres[name])

@@ -192,3 +192,10 @@ def frozen_prefixes(margs: ModelArguments) -> Tuple[Tuple[str, ...], ...]:
         out.append(("decoder",))
         out.append(("lm_head",))
     return tuple(out)
+
+
+def train_settings(path: str) -> Tuple[TrainConfig, Tuple[Tuple[str, ...], ...]]:
+    """(TrainConfig, frozen prefixes) of a training YAML such as
+    configs/train.yaml."""
+    margs, dargs, targs = parse_yaml_config(path)
+    return build_train_config(targs, dargs, margs), frozen_prefixes(margs)

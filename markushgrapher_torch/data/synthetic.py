@@ -12,7 +12,8 @@ cells — emitted in the canonical HF sample schema
 (no PIL): OCR cells in the shape `render` emits, encoded by `SampleEncoder`
 and `DataCollator`, with seeded uint8 pixels normalised as the dataset does.
 For smoke runs and timing on random weights, where the page content does
-not matter but its shape does.
+not matter but its shape does. `labelled_batch` does the same for labelled
+training samples.
 """
 
 from __future__ import annotations
@@ -236,3 +237,34 @@ def page_batch(cfg: MarkushGrapherConfig, batch: int, seed: int,
             0, 256, (cfg.swin.image_size,) * 2 + (3,)).astype(np.uint8))
         samples.append(s)
     return DataCollator(max_length=cfg.max_seq_length)(samples)
+
+
+
+def labelled_batch(cfg: MarkushGrapherConfig, batch: int, seed: int,
+                   tokenizer: Optional[MarkushTokenizer] = None
+                   ) -> Dict[str, np.ndarray]:
+    """`batch` labelled samples without rendering (no PIL): the generator's
+    annotations, seeded OCR cells (`page_cells`) and seeded uint8 pixels
+    normalised as the dataset does, through `MDUDataset` and `DataCollator`
+    at the config's lengths: the numpy batch `Trainer.train_step` takes."""
+    from markushgrapher_torch.data.dataset import MDUDataset
+
+    rng = np.random.RandomState(seed)
+    size, ocsr = cfg.vtl.image_size, cfg.swin.image_size
+    gen = SyntheticMarkushGenerator(seed=seed, image_size=size)
+    gen.render = lambda cxsmiles_opt, stable: (None, page_cells(rng, size))
+    ds = MDUDataset(source=[gen.sample(i) for i in range(batch)],
+                    markush_tokenizer=tokenizer or MarkushTokenizer(),
+                    image_size=size, ocsr_image_size=ocsr,
+                    max_seq_length=cfg.max_seq_length,
+                    max_seq_length_decoder=cfg.max_seq_length_decoder)
+    items = []
+    for i in range(batch):
+        item = {k: v for k, v in ds[i].items() if k != "id"}
+        item["pixel_values"] = normalize_vtl_image(
+            rng.randint(0, 256, (size, size, 3)).astype(np.uint8))
+        item["ocsr_pixel_values"] = normalize_ocsr_image(
+            rng.randint(0, 256, (ocsr, ocsr, 3)).astype(np.uint8))
+        items.append(item)
+    return DataCollator(max_length=cfg.max_seq_length,
+                        max_length_decoder=cfg.max_seq_length_decoder)(items)

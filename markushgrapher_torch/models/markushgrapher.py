@@ -12,6 +12,16 @@ branch, the float-KV decode and `encoder_pack_len` are not ported
 `use_kernels=False` makes the model call each kernel's plain PyTorch version
 directly on any device: the reference path that the card's kernels are held
 against.
+
+Training (`forward`, the reference's teacher-forced `__call__`):
+`encode_train` is the grad-enabled encoder. With deterministic=False on a
+long VTL row (L > 512, a 256-multiple) it builds the reference's training
+slab once, ((t1 + th) + tv) in float32 with -1e9 on masked keys, cast to bf16
+(`relbias.encoder_position_bias_onehot`), and every layer's self-attention
+goes through the trainable flash kernels; otherwise the float32 bias plus
+`mask_bias` and dense attention, as the reference. `decode_train` is the
+dense teacher-forced decoder, `lm_head` in float32. `remat` recomputes each
+layer in backward.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ from torch import nn
 from markushgrapher_torch.config import MarkushGrapherConfig
 from markushgrapher_torch.models.swin import LayerNorm, SwinEncoder
 from markushgrapher_torch.models.t5 import (RMSNorm, Decoder, Encoder,
-                                            quantize_w)
+                                            quantize_w, train_chunk_q)
 from markushgrapher_torch.ops import bias_build, relbias
 from markushgrapher_torch.ops.fusion import combine_image_text_embeddings
 
@@ -111,10 +121,12 @@ class MLPProjector(nn.Module):
 
 class MarkushGrapherModel(nn.Module):
     def __init__(self, cfg: MarkushGrapherConfig, use_kernels: bool = True,
-                 int4_cross: bool = True):
+                 int4_cross: bool = True, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        # training: recompute each encoder / decoder layer in backward
+        self.remat = remat
         # KV scheme of the decode caches: int4 (True) or int8 (False)
         self.int4_cross = int4_cross
         vtl = cfg.vtl
@@ -131,7 +143,7 @@ class MarkushGrapherModel(nn.Module):
             self.enc_bias_v = nn.Parameter(torch.zeros(nb, heads))
             self.encoder = Encoder(vtl.num_layers, vtl.d_model, heads,
                                    vtl.d_kv, vtl.d_ff, vtl.feed_forward_proj,
-                                   vtl.layer_norm_epsilon)
+                                   vtl.layer_norm_epsilon, vtl.dropout_rate)
         if cfg.architecture_variant != "none":
             self.molscribe_encoder = SwinEncoder(cfg.swin)
             self.molscribe_projector = MLPProjector(
@@ -139,7 +151,7 @@ class MarkushGrapherModel(nn.Module):
         self.dec_bias_1d = nn.Parameter(torch.zeros(nb, heads))
         self.decoder = Decoder(vtl.num_decoder_layers, vtl.d_model, heads,
                                vtl.d_kv, vtl.d_ff, vtl.feed_forward_proj,
-                               vtl.layer_norm_epsilon)
+                               vtl.layer_norm_epsilon, vtl.dropout_rate)
         self.lm_head = nn.Linear(vtl.d_model, vtl.vocab_size, bias=False)
 
     @property
@@ -219,6 +231,96 @@ class MarkushGrapherModel(nn.Module):
             masks.append(full_mask)
         return torch.cat(branches, dim=1), torch.cat(masks, dim=1)
 
+    # -- training: teacher-forced forward -------------------------------------
+
+    def encode_train(self, input_ids, bbox, attention_mask,
+                     pixel_values: Optional[torch.Tensor],
+                     ocsr_pixel_values: Optional[torch.Tensor],
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Grad-enabled encode: (states [B, L_enc, D] in the parameters'
+        dtype, mask [B, L_enc])."""
+        cfg, vtl = self.cfg, self.cfg.vtl
+        branches: List[torch.Tensor] = []
+        masks: List[torch.Tensor] = []
+        if cfg.architecture_variant != "none":
+            e1 = self.molscribe_projector(
+                self.molscribe_encoder(ocsr_pixel_values))
+            branches.append(e1)
+            masks.append(torch.ones(e1.shape[:2], dtype=attention_mask.dtype,
+                                    device=e1.device))
+        if cfg.architecture_variant != "me-lf-stack-1-molscribe-only":
+            if tuple(pixel_values.shape[1:3]) != (vtl.image_size,
+                                                  vtl.image_size):
+                raise ValueError(
+                    f"pixel_values {tuple(pixel_values.shape[1:3])} != "
+                    f"configured image_size {vtl.image_size}")
+            tok = self.embed_tokens(input_ids)
+            embeds, full_bbox, full_mask = combine_image_text_embeddings(
+                self.patch_embed(pixel_values).to(tok.dtype), tok,
+                bbox.to(torch.float32), attention_mask, vtl.num_patches_side)
+            embeds = embeds + self.cell2d(full_bbox)
+            seq_len = embeds.shape[1]
+            tables = (self.enc_bias_1d, self.enc_bias_h, self.enc_bias_v)
+            geometry = (vtl.relative_attention_num_buckets,
+                        vtl.relative_attention_max_distance,
+                        vtl.rel2d_scaling_factor, vtl.rel2d_max_distance)
+            if not deterministic and train_chunk_q(seq_len):
+                bias = relbias.encoder_position_bias_onehot(
+                    *tables, full_bbox, full_mask, seq_len, *geometry)
+            else:
+                bias = relbias.encoder_position_bias(
+                    *tables, full_bbox, seq_len, *geometry) + \
+                    relbias.mask_bias(full_mask)
+            branches.append(self.encoder.train_forward(
+                embeds, bias, deterministic, generator, self.remat))
+            masks.append(full_mask)
+        return (torch.cat([t.to(self.dtype) for t in branches], dim=1),
+                torch.cat(masks, dim=1))
+
+    def shift_right(self, labels: torch.Tensor) -> torch.Tensor:
+        """labels -> decoder_input_ids: prepend decoder_start, drop the last,
+        -100 -> pad."""
+        vtl = self.cfg.vtl
+        shifted = torch.roll(labels, 1, dims=-1)
+        shifted[:, 0] = vtl.decoder_start_token_id
+        return torch.where(shifted == -100, vtl.pad_token_id, shifted)
+
+    def decode_train(self, decoder_input_ids: torch.Tensor, enc: torch.Tensor,
+                     enc_mask: torch.Tensor, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Teacher-forced decoder -> float32 logits [B, S, V]."""
+        vtl = self.cfg.vtl
+        seq_len = decoder_input_ids.shape[1]
+        x = self.embed_tokens(decoder_input_ids)
+        self_bias = self.full_decoder_bias(seq_len)
+        cross_bias = relbias.mask_bias(enc_mask)
+        x = self.decoder.train_forward(x, enc, self_bias, cross_bias,
+                                       deterministic, generator, self.remat)
+        with torch.autocast(x.device.type, enabled=False):
+            return F.linear(x.to(torch.float32),
+                            self.lm_head.weight.to(torch.float32))
+
+    def forward(self, input_ids, bbox, attention_mask, labels,
+                pixel_values: Optional[torch.Tensor] = None,
+                ocsr_pixel_values: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Full teacher-forced forward: {"loss", "logits" (float32)}.
+        deterministic=False is the training forward (dropout from
+        `generator`, the training encoder branch)."""
+        enc, enc_mask = self.encode_train(
+            input_ids, bbox, attention_mask, pixel_values, ocsr_pixel_values,
+            deterministic, generator)
+        labels = labels.long()
+        logits = self.decode_train(self.shift_right(labels), enc, enc_mask,
+                                   deterministic, generator)
+        return {"loss": cross_entropy_with_ignore(logits, labels),
+                "logits": logits}
+
     # -- stepwise decode -----------------------------------------------------
 
     @torch.no_grad()
@@ -237,9 +339,9 @@ class MarkushGrapherModel(nn.Module):
         return {"layers": self.decoder.quantize_weights(),
                 "lm_head": {"q": lm_q, "s": lm_s}}
 
-    @torch.no_grad()
     def full_decoder_bias(self, max_len: int) -> torch.Tensor:
-        """[1, H, S, S] float32 causal T5 bias."""
+        """[1, H, S, S] float32 causal T5 bias (differentiable in the
+        table)."""
         vtl = self.cfg.vtl
         bias = relbias.decoder_position_bias(
             self.dec_bias_1d, max_len, vtl.relative_attention_num_buckets,
@@ -264,3 +366,19 @@ class MarkushGrapherModel(nn.Module):
         logits = F.linear(x.to(torch.bfloat16).to(torch.float32),
                           qw["lm_head"]["q"].to(torch.float32))
         return logits * qw["lm_head"]["s"]
+
+
+def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_index: int = -100,
+                              label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over non-ignored positions, float32 log-softmax;
+    with label_smoothing, (1 - e) * nll + e * mean(-log p)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * (
+            -logp.mean(dim=-1))
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)

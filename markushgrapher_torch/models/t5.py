@@ -1,5 +1,6 @@
 """T5-style transformer stack (the UDOP backbone): port of
-`markushgrapher_tpu.models.t5`, encoder and serving decode step.
+`markushgrapher_tpu.models.t5`: the serving encoder and decode step, and the
+full-sequence training forwards (`train_forward`).
 
 Pre-RMSNorm blocks (float32 statistics), attention without 1/sqrt(d)
 scaling, relu (or gated-gelu) feed-forward. Module and parameter names follow
@@ -26,14 +27,26 @@ search): the beam cross folds the beams into the kernel's query rows with a
 `head_map`, so every beam of a sample reads its shared slab in one pass.
 Every decode-step matmul runs against int8 weights dequantised to the
 compute dtype, scaled per output channel afterwards.
+
+Training (`train_forward`, grad-enabled): dropout at the reference's sites
+(after the feed-forward activation, on each sub-layer output before its
+residual add, and on the stacks' inputs and final norms), with keep masks
+drawn from a `torch.Generator` seeded per layer, so a layer recomputed under
+`torch.utils.checkpoint` (the reference's `remat`) draws the same masks.
+Encoder self-attention on long rows (L > 512, a 256-multiple, the
+reference's `_train_chunk_q` gate) goes through the trainable flash kernels
+(`ops.flash_attention.flash_attention_train`); every other attention is the
+dense float32-score softmax. Under bf16 autocast the matmuls run in bf16
+over float32 weights; scores, softmax and norms stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from markushgrapher_torch.ops import flash_attention, mxu_decode
@@ -118,6 +131,20 @@ class Attention(nn.Module):
         out = fn(q, k, v, *bias)
         return self.o(out.reshape(*out.shape[:2], -1))
 
+    def attend(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+               kv_input: Optional[torch.Tensor] = None,
+               flash: bool = False) -> torch.Tensor:
+        """Training attention over x (self) or kv_input (cross); bias
+        broadcastable to [B, H, Q, K] (additive, mask included)."""
+        src = x if kv_input is None else kv_input
+        q, k, v = self.split(self.q(x)), self.split(self.k(src)), \
+            self.split(self.v(src))
+        if flash:
+            out = flash_attention.flash_attention_train(q, k, v, bias)
+        else:
+            out = dense_attention(q, k, v, bias)
+        return self.o(out.reshape(*out.shape[:2], -1))
+
 
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int, proj: str = "relu"):
@@ -130,12 +157,15 @@ class FeedForward(nn.Module):
             self.wi = nn.Linear(d_model, d_ff, bias=False)
         self.wo = nn.Linear(d_ff, d_model, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Dropout (`rate`, masks from `gen`) on the hidden activation when
+        training; none without a generator."""
         if self.proj == "gated-gelu":
             h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
         else:
             h = F.relu(self.wi(x))
-        return self.wo(h)
+        return self.wo(dropout(h, rate, gen))
 
 
 class EncoderLayer(nn.Module):
@@ -151,12 +181,21 @@ class EncoderLayer(nn.Module):
         x = x + self.attn(self.ln_attn(x), bias, use_kernels)
         return x + self.ff(self.ln_ff(x))
 
+    def train_forward(self, x, bias, seed: Optional[int], rate: float,
+                      flash: bool):
+        gen = layer_generator(seed, x.device)
+        h = self.attn.attend(self.ln_attn(x), bias, flash=flash)
+        x = x + dropout(h, rate, gen)
+        h = self.ff(self.ln_ff(x), rate, gen)
+        return x + dropout(h, rate, gen)
+
 
 class Encoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff,
-                 ff_proj="relu", eps=1e-6):
+                 ff_proj="relu", eps=1e-6, dropout_rate: float = 0.0):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.num_heads = num_layers, num_heads
+        self.dropout_rate = dropout_rate
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, num_heads, d_kv, d_ff, ff_proj, eps))
@@ -166,6 +205,107 @@ class Encoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, bias, use_kernels)
         return self.final_ln(x)
+
+    def train_forward(self, x: torch.Tensor, bias: torch.Tensor,
+                      deterministic: bool,
+                      generator: Optional[torch.Generator] = None,
+                      remat: bool = False) -> torch.Tensor:
+        """x [B, L, D]; bias [B or 1, H, L, L] additive (mask included).
+        Dropout masks come from `generator` unless deterministic."""
+        rate = self.dropout_rate
+        generator = training_generator(deterministic, rate, generator)
+        length = x.shape[1]
+        flash = not deterministic and use_train_flash(length, length, bias,
+                                                      self.num_heads)
+        x = dropout(x, rate, layer_generator(draw_seed(generator), x.device))
+        for i in range(self.num_layers):
+            x = run_layer(getattr(self, f"layer_{i}").train_forward, remat,
+                          x, bias, draw_seed(generator), rate, flash)
+        x = self.final_ln(x)
+        return dropout(x, rate, layer_generator(draw_seed(generator),
+                                                x.device))
+
+
+# -- training helpers ----------------------------------------------------------
+
+
+def draw_seed(generator: Optional[torch.Generator]) -> Optional[int]:
+    """A 62-bit seed from a host generator (None stays None)."""
+    if generator is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+
+
+def training_generator(deterministic: bool, rate: float,
+                       generator: Optional[torch.Generator]
+                       ) -> Optional[torch.Generator]:
+    """The host generator the dropout seeds come from: None when
+    deterministic or the rate is 0; raises when dropout needs one and none
+    was given (as flax does without a dropout rng)."""
+    if deterministic or rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a "
+                         "torch.Generator")
+    return generator
+
+
+def layer_generator(seed: Optional[int],
+                    device: torch.device) -> Optional[torch.Generator]:
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate); identity when gen is None (deterministic)
+    or rate is 0."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def run_layer(fn, remat: bool, *args):
+    """fn(*args), recomputed in backward instead of saving its activations
+    when remat (the reference's per-layer `nn.remat`)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def train_chunk_q(q_len: int) -> Optional[int]:
+    """The reference's long-row training gate (`_train_chunk_q`): rows
+    longer than 512 that are 256-multiples."""
+    return 256 if q_len > 512 and q_len % 256 == 0 else None
+
+
+def use_train_flash(q_len: int, k_len: int, bias: Optional[torch.Tensor],
+                    heads: int) -> bool:
+    """Long rows with a full [*, H, Q, K] bias take the trainable flash
+    kernels (`_train_chunk_q` and `_train_flash_ok` of the reference)."""
+    return (train_chunk_q(q_len) is not None and k_len % 128 == 0
+            and bias is not None and bias.dim() == 4
+            and tuple(bias.shape[1:]) == (heads, q_len, k_len))
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """q [B, Q, H, D], k / v [B, K, H, D]: float32 scores plus the bias,
+    float32 softmax, probabilities cast to v's dtype for the PV product
+    (the reference's dense attention, t5.py:401-407)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))
+        if bias is not None:
+            s = s + bias.to(ct)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
 def reorder_self_rings(caches: List[Cache], parent: torch.Tensor,
@@ -193,6 +333,17 @@ class DecoderLayer(nn.Module):
         self.cross_attn = Attention(d_model, num_heads, d_kv)
         self.ln_ff = RMSNorm(d_model, eps)
         self.ff = FeedForward(d_model, d_ff, ff_proj)
+
+    def train_forward(self, x, enc, self_bias, cross_bias,
+                      seed: Optional[int], rate: float):
+        """Teacher-forced full-sequence pass (dense attention)."""
+        gen = layer_generator(seed, x.device)
+        h = self.self_attn.attend(self.ln_self(x), self_bias)
+        x = x + dropout(h, rate, gen)
+        h = self.cross_attn.attend(self.ln_cross(x), cross_bias, kv_input=enc)
+        x = x + dropout(h, rate, gen)
+        h = self.ff(self.ln_ff(x), rate, gen)
+        return x + dropout(h, rate, gen)
 
     def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
                    rows: int) -> Cache:
@@ -310,9 +461,10 @@ class DecoderLayer(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, num_layers, d_model, num_heads, d_kv, d_ff,
-                 ff_proj="relu", eps=1e-6):
+                 ff_proj="relu", eps=1e-6, dropout_rate: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 d_model, num_heads, d_kv, d_ff, ff_proj, eps))
@@ -320,6 +472,20 @@ class Decoder(nn.Module):
 
     def layers(self) -> List[DecoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def train_forward(self, x, enc, self_bias, cross_bias,
+                      deterministic: bool,
+                      generator: Optional[torch.Generator] = None,
+                      remat: bool = False) -> torch.Tensor:
+        rate = self.dropout_rate
+        generator = training_generator(deterministic, rate, generator)
+        x = dropout(x, rate, layer_generator(draw_seed(generator), x.device))
+        for layer in self.layers():
+            x = run_layer(layer.train_forward, remat, x, enc, self_bias,
+                          cross_bias, draw_seed(generator), rate)
+        x = self.final_ln(x)
+        return dropout(x, rate, layer_generator(draw_seed(generator),
+                                                x.device))
 
     def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
                    rows: int) -> List[Cache]:

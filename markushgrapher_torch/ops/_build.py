@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
-(the two decode kernels and the OCR megastep share `decode_common.cuh`). At first use they are
+(the two decode kernels and the OCR megastep share `decode_common.cuh`, the
+float-bias flash forward and backward `flash_bias.cuh`). At first use they are
 compiled with nvcc for Hopper (`sm_90a`), one nvcc
 process per source, all started together, and linked into one shared
 library under `markushgrapher_torch/_build/` (named by a hash of the sources
@@ -30,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
-           "decode_i8.cu", "ocr_megastep.cu")
+           "decode_i8.cu", "ocr_megastep.cu", "flash_bias.cu",
+           "flash_bias_bwd.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf. The
 # megastep's grid.sync() needs no -rdc (CUDA 11 and later).
@@ -39,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
                             "decode_int4": 0, "decode_i8": 0,
-                            "ocr_megastep": 0}
+                            "ocr_megastep": 0, "flash_bias": 0,
+                            "flash_bias_dkv": 0, "flash_bias_dq": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -56,6 +59,14 @@ _SIGNATURES = {
     # wd, sd, ln_attn, ln_mlp, L, B, S, Dm, H, G, D, F, pos, eps,
     # inv_sqrt_d, stream
     "mg_ocr_megastep": [_P] * 18 + [_I] * 9 + [_F, _F, _P],
+    # q, k, v, bias, bias_f32, bias_batched, B, L, H, D, out, lse, stream
+    "mg_flash_bias_fwd": [_P] * 4 + [_I] * 6 + [_P] * 3,
+    # q, k, v, bias, bias_f32, bias_batched, do, lse, di, B, L, H, D,
+    # dk, dv (dq, ds), stream
+    "mg_flash_bias_dkv": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4
+    + [_P] * 3,
+    "mg_flash_bias_dq": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4
+    + [_P] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -185,3 +185,68 @@ def mask_bias(attention_mask: torch.Tensor,
     return torch.where(attention_mask[:, None, None, :] > 0, zero,
                        torch.tensor(neg, dtype=dtype,
                                     device=attention_mask.device))
+
+
+class _TableBias(torch.autograd.Function):
+    """((t1[b1] + th[bh]) + tv[bv]) in float32, `mask_value` where `keep` is
+    false, cast to `out_dtype`. Backward: each [nb, H] table gradient as a
+    float32 product of the masked slab gradient with the one-hot of its
+    buckets (the reference's one-hot formulation), not an index scatter: the
+    autograd scatter of 19M positions into 32 buckets sorts them and then
+    sums each bucket's long run serially."""
+
+    @staticmethod
+    def forward(ctx, t1, th, tv, b1, bh, bv, keep, mask_value, out_dtype):
+        full = (gather_bias(t1, b1)[None] + gather_bias(th, bh)) \
+            + gather_bias(tv, bv)
+        ctx.save_for_backward(b1, bh, bv, keep)
+        ctx.num_buckets = t1.shape[0]
+        # the gathers leave heads minormost in memory: lay the slab out
+        # [B, H, L, L] once here, not in every layer's attention call
+        return torch.where(keep, full, mask_value).to(
+            out_dtype, memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b1, bh, bv, keep = ctx.saved_tensors
+        nb = ctx.num_buckets
+        with torch.autocast(grad.device.type, enabled=False):
+            g = torch.where(keep, grad.to(torch.float32), 0.0)
+            g = g.reshape(g.shape[0], g.shape[1], -1)           # [B, H, L*L]
+
+            def table_grad(gh, idx):                            # [H, N], [N]
+                onehot = torch.zeros((idx.numel(), nb), device=gh.device)
+                onehot.scatter_(1, idx.reshape(-1, 1).long(), 1.0)
+                return (gh @ onehot).T                          # [nb, H]
+
+            d1 = table_grad(g.sum(dim=0), b1)
+            dh = sum(table_grad(g[b], bh[b]) for b in range(g.shape[0]))
+            dv = sum(table_grad(g[b], bv[b]) for b in range(g.shape[0]))
+        return d1, dh, dv, None, None, None, None, None, None
+
+
+def encoder_position_bias_onehot(bias_1d_table, bias_h_table, bias_v_table,
+                                 bbox: torch.Tensor,
+                                 attention_mask: torch.Tensor, seq_len: int,
+                                 num_buckets: int, max_distance_1d: int,
+                                 rel2d_scaling: int, max_distance_2d: int,
+                                 mask_value: float = -1e9,
+                                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Differentiable encoder bias [B, H, L, L] with the key mask folded in:
+    ((t1[b1] + th[bh]) + tv[bv]) in float32, `mask_value` on masked keys,
+    then cast to `out_dtype` (the reference's training slab,
+    `relbias.encoder_position_bias_onehot`, whose one-hot products give the
+    same sums). The sums are built in float32 and cast afterwards, and the
+    three [nb, H] table gradients accumulate in float32 (`_TableBias`)."""
+    t1, th, tv = (t.to(torch.float32) for t in (bias_1d_table, bias_h_table,
+                                                bias_v_table))
+    b1 = bucket_1d(seq_len, bidirectional=True, num_buckets=num_buckets,
+                   max_distance=max_distance_1d, device=bbox.device)
+    hx, vy = bbox_centres(bbox)
+    bh = bucket_2d(hx, scaling_factor=rel2d_scaling, num_buckets=num_buckets,
+                   max_distance=max_distance_2d)
+    bv = bucket_2d(vy, scaling_factor=rel2d_scaling, num_buckets=num_buckets,
+                   max_distance=max_distance_2d)
+    keep = attention_mask[:, None, None, :] > 0
+    return _TableBias.apply(t1, th, tv, b1, bh, bv, keep, mask_value,
+                            out_dtype)

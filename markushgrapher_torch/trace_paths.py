@@ -1,6 +1,7 @@
 """Where the time of an encode, a prefill and a decode step goes on the card.
 
-    python -m markushgrapher_torch.trace_paths [--stage all|mg|ocr] [--out FILE]
+    python -m markushgrapher_torch.trace_paths [--stage all|mg|ocr|train]
+        [--out FILE]
 
 MarkushGrapher (`--stage mg`): the flagship `MarkushGrapherConfig()` with
 seeded random bf16 weights on seeded synthetic pages (as `chip_smoke.py`
@@ -9,6 +10,9 @@ batch sizes below, 512 steps' worth of rings with eos never firing.
 ChemicalOCR (`--stage ocr`): `OCRConfig()` with seeded random bf16 weights
 on seeded uint8 pages at batch 8, through `ChemicalOCR.generate_batch`
 with 512 new tokens, along its three paths (int4 KV, int8 KV, megastep).
+Training (`--stage train`): one `Trainer.train_step` of the flagship at
+batch 8 on seeded labelled pages, TrainConfig from configs/train.yaml
+without accumulation (as `chip_smoke.py` phase 6), after two warm steps.
 Steps SKIP..SKIP+STEPS run twice: once untraced (host clock, synchronised
 at both ends) and once under `torch.profiler` with CPU and CUDA activities.
 One encode (MG) or prefill (OCR) per batch size is traced the same way. For
@@ -21,10 +25,12 @@ the windows as JSON, with the top kernels by name. Needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 SEED = 0
@@ -40,10 +46,14 @@ OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
              ("ocr int8", dict(quant_kv=True, quant_weights=True)),
              ("ocr megastep", dict(quant_kv=True, quant_weights=True,
                                    megastep=True)))
+TRAIN_BATCH, TRAIN_WARM = 8, 2
 # device-time kinds, by the first substring of the kernel name that matches
 KINDS = (("ocr_megastep", ("ocr_megastep",)),
          ("decode attention", ("decode_i8_kernel", "decode_int4_kernel")),
          ("flash_i8", ("flash_i8",)), ("bias_build_i8", ("bias_build",)),
+         ("flash_bias", ("flash_bias_fwd",)),
+         ("flash_bias backward", ("flash_bias_dkv", "flash_bias_dq")),
+         ("optimizer (foreach)", ("multi_tensor",)),
          ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")),
          ("copy / fill", ("Memcpy", "Memset", "copy_", "fill_")),
          ("sort / top-k", ("sort", "Sort", "topk", "radix")),
@@ -179,7 +189,8 @@ def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--stage", choices=("all", "mg", "ocr"), default="all")
+    ap.add_argument("--stage", choices=("all", "mg", "ocr", "train"),
+                    default="all")
     ap.add_argument("--out", default=None, help="write the windows as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -214,6 +225,8 @@ def main(argv=None) -> None:
             trace_mg(dev, mt, record)
         if args.stage in ("all", "ocr"):
             trace_ocr(dev, mt, record)
+    if args.stage in ("all", "train"):
+        trace_train(dev, mt, record)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": card, "windows": windows}, f, indent=1)
@@ -292,6 +305,35 @@ def trace_ocr(dev, mt, record) -> None:
         wall, _ = step_window(model, attr, run, False)
         record(f"{label} b{OCR_BATCH} decode steps {SKIP}-{SKIP + STEPS}",
                wall, step_window(model, attr, run, True), STEPS)
+
+
+def trace_train(dev, mt, record) -> None:
+    import torch
+
+    from markushgrapher_torch.arguments import train_settings
+    from markushgrapher_torch.config import MarkushGrapherConfig
+    from markushgrapher_torch.data.synthetic import labelled_batch
+    from markushgrapher_torch.models.markushgrapher import MarkushGrapherModel
+    from markushgrapher_torch.train.trainer import Trainer
+
+    cfg = MarkushGrapherConfig()
+    tcfg, frozen = train_settings(str(Path(__file__).resolve().parents[1]
+                                      / "configs" / "train.yaml"))
+    tcfg = dataclasses.replace(tcfg, per_device_batch_size=TRAIN_BATCH,
+                               gradient_accumulation_steps=1)
+    batch = labelled_batch(cfg, TRAIN_BATCH, SEED, mt)
+    with torch.device(dev):
+        model = MarkushGrapherModel(cfg)
+    trainer = Trainer(model=model, cfg=tcfg, frozen_prefixes=frozen)
+    state = trainer.init_state(SEED)
+
+    def step():
+        trainer.train_step(state, batch, SEED)
+
+    for _ in range(TRAIN_WARM):
+        step()
+    wall, _ = encode_window(step, False)
+    record(f"train step b{TRAIN_BATCH}", wall, encode_window(step, True), 1)
 
 
 if __name__ == "__main__":

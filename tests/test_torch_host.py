@@ -110,3 +110,45 @@ def test_ocr_grammar_copy_matches_jax(text):
     for fmt in ("loc", "gt"):
         assert t_gram.render_ocr_target(cells, fmt) == \
             j_gram.render_ocr_target(cells, fmt)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_augment_copy_matches_jax(seed):
+    """data/augment.py: the same seed gives the same augmented page and
+    cells (image noise, geometric warp where cv2 is installed) and the same
+    OCR text noise."""
+    from markushgrapher_tpu.data import augment as j_aug
+    from markushgrapher_torch.data import augment as t_aug
+
+    rng = np.random.RandomState(seed)
+    image = rng.randint(0, 256, (96, 96, 3)).astype(np.uint8)
+    cells = [{"bbox": [0.1, 0.2, 0.5, 0.3], "text": "R1 = OMe, Cl or 5-Br"},
+             {"bbox": [0.6, 0.6, 0.9, 0.8], "text": "S0l8B"}]
+    kw = dict(p_geometric=1.0, p_lines=1.0, p_pepper=1.0, p_blur=1.0,
+              seed=seed)
+    img_j, cells_j = j_aug.Augmenter(**kw)(image, cells)
+    img_t, cells_t = t_aug.Augmenter(**kw)(image, cells)
+    np.testing.assert_array_equal(img_t, img_j)
+    assert cells_t == cells_j
+    okw = dict(p_char_sub=0.5, p_insert=0.2, p_delete=0.2, p_transpose=0.2,
+               p_case=0.3, seed=seed)
+    assert t_aug.OCRAugmenter(**okw)(cells) == j_aug.OCRAugmenter(**okw)(cells)
+
+
+def test_tracker_copy_matches_jax(tmp_path):
+    """utils/tracker.py: the same backends for each `report_to`, and the
+    JSONL tracker writes the same stream."""
+    from markushgrapher_tpu.utils import tracker as j_tr
+    from markushgrapher_torch.utils import tracker as t_tr
+
+    for name in ("none", "", "jsonl", "clearml", "wandb"):
+        j = j_tr.make_tracker(name, output_dir=str(tmp_path / "j" / name))
+        t = t_tr.make_tracker(name, output_dir=str(tmp_path / "t" / name))
+        assert type(t).__name__ == type(j).__name__, name
+        for tracker in (j, t):
+            tracker.connect({"lr": 1e-3, "shape": (2, 3), "name": "x"})
+            tracker.log_scalars(5, {"loss": 0.25, "step": 5})
+            tracker.close()
+        if name == "jsonl":
+            assert (tmp_path / "t" / name / "tracker.jsonl").read_text() == \
+                (tmp_path / "j" / name / "tracker.jsonl").read_text()

@@ -281,3 +281,62 @@ def test_megastep_refuses_before_launch(dev):
                                                        device=dev), 10,
                               heads=4, groups=2, rms_eps=1e-5)
     assert _build.LAUNCHES["ocr_megastep"] == 0
+
+
+def test_flash_bias_main_path_shapes(dev, chip_smoke):
+    """The float-bias forward at row 3's serving shape and forward + both
+    backward kernels at the training shape, with chip_smoke's gates."""
+    res = chip_smoke.check_flash_bias(dev)
+    assert set(res) == set(chip_smoke.FLASH_BIAS)
+
+
+@pytest.mark.parametrize("length,bias_dtype,bias_batch", [
+    (200, torch.float32, 1), (200, torch.bfloat16, 2),
+    (640, torch.bfloat16, 1), (1000, torch.float32, 2)])
+def test_flash_bias_ragged_lengths_and_bias_layouts(dev, chip_smoke, length,
+                                                    bias_dtype, bias_batch):
+    """Lengths that are no multiple of the 64-row tiles (and not of 8: the
+    bias rows are read without 16-byte loads), float32 and bf16 biases,
+    batch-1 biases; each kernel against its plain version, and the
+    autograd op's d(bias) summed over the batch for a batch-1 bias."""
+    rng = np.random.RandomState(length)
+    B, H, D = 2, 3, 64
+    q, k, v, do = (torch.tensor(rng.randn(B, length, H, D) * s,
+                                dtype=torch.bfloat16, device=dev)
+                   for s in (0.3, 0.3, 1.0, 0.1))
+    bias = rng.randn(bias_batch, H, length, length) * 0.5
+    bias[..., length - length // 4:] = -1e9
+    bias = torch.tensor(bias, dtype=bias_dtype, device=dev)
+    o, lse = flash_attention.flash_bias_fwd(q, k, v, bias)
+    o_r, lse_r = flash_attention.plain_fwd(q, k, v, bias)
+    chip_smoke.within("flash_bias", o, o_r)
+    chip_smoke.lse_within(lse, lse_r)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, bias, do, lse, di)
+    for got, ref, name in zip(
+            flash_attention.flash_bias_dkv(*args) +
+            flash_attention.flash_bias_dq(*args),
+            flash_attention.plain_bwd_dkv(*args) +
+            flash_attention.plain_bwd_dq(*args),
+            ("dk", "dv", "dq", "dbias")):
+        assert got.dtype == ref.dtype, name
+        chip_smoke.grad_within(name, got, ref)
+    leaf = bias.clone().requires_grad_()
+    flash_attention.flash_attention_train(q, k, v, leaf).backward(do)
+    assert leaf.grad.shape == bias.shape and leaf.grad.dtype == bias_dtype
+    ds = flash_attention.plain_bwd_dq(*args)[1].float().sum(0, keepdim=True)
+    if bias_batch == 1:
+        chip_smoke.grad_within("dbias summed", leaf.grad, ds)
+
+
+def test_flash_bias_refuses(dev):
+    q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash_attention.flash_bias_fwd(q, q, q, bias)
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention.flash_bias_fwd(q, q, q, bias)
+    q = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention.flash_bias_fwd(q, q, q, bias[:, :1])
