@@ -16,7 +16,11 @@ prints no result):
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
    989 TFLOP/s bf16, whichever is larger) and, where one PyTorch call
-   computes the same function, that call's time. The OCR shapes: the
+   computes the same function, that call's time. flash_relbias (the bias
+   computed in the kernel) at B=2 and B=8, L=1536, H=16, D=64, bf16, with
+   padded keys: no PyTorch call builds the relative bias, so its library
+   time is none (SDPA over a prebuilt bf16 slab is printed for scale).
+   The OCR shapes: the
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
    p = L0 + 400; decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv
    heads) over that ring. The float-bias flash forward at its serving shape
@@ -25,9 +29,16 @@ prints no result):
    SDPA with the bias as attn_mask as the library yardstick;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
-   never firing, along four paths: greedy under int4 KV for 512 steps, beam-5
-   under int4 KV for 512 steps, greedy under int8 KV for 512 steps, and
-   beam-5 under int8 KV for 128 steps. Then OCRConfig() (seeded random bf16
+   never firing, along seven paths (PATHS): over the int8 slab encoder,
+   greedy under int4 KV for 512 steps, beam-5 under int4 KV for 512 steps,
+   greedy under int8 KV for 512 steps, and beam-5 under int8 KV for 128
+   steps (int8 decode weights); `configs/predict.yaml`'s route, the bf16
+   slab encoder (`flash_bias`) and beam-5 over bf16 KV caches with the bf16
+   weights, 128 steps; greedy int4 over the in-kernel bias
+   (`flash_relbias`) and over the packed encoder (pack: the ceil-256 of the
+   batch's VTL valid count), 128 steps each. The packed encoder's states
+   are held to the unpacked ones at the valid positions, both on the plain
+   path in float32. Then OCRConfig() (seeded random bf16
    weights) through `ChemicalOCR.generate_batch` on seeded uint8 pages at
    batch 8, 512 new tokens, eos never firing, along three paths: int4 KV,
    int8 KV, and the megastep (int8 KV, one launch per step). For each: the
@@ -37,8 +48,11 @@ prints no result):
    megastep one layer at a time and as a whole step). For the int4 greedy
    path also the end-to-end difference from the plain path beside a
    half-ulp-nudge control; for every path a few rows decoded to strings;
-5. timing: encode ms, decode ms/step and img/s of int4 greedy at batch 8 and
-   48, beam-5 (int4) at batch 8 and 16, int8 greedy at batch 8 and 48; OCR
+5. timing: encode ms of each encoder route (int8 slab, bf16 slab,
+   in-kernel bias, packed) at batch 8 and 48; encode ms, decode ms/step and
+   img/s of int4 greedy at batch 8 and 48, beam-5 (int4) at batch 8 and 16,
+   int8 greedy at batch 8 and 48 (all over the int8 slab), and
+   predict.yaml's beam-5 over the bf16 slab and bf16 KV at batch 8; OCR
    prefill ms, ms/step and img/s of each OCR path at batch 8; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
    fallback cells where random weights emit none) -> SampleEncoder /
@@ -91,6 +105,8 @@ KERNELS = {
                        "markushgrapher_tpu/models/t5.py:380"),
     "flash_bias_dq": ("markushgrapher_torch/csrc/flash_bias_bwd.cu",
                       "markushgrapher_tpu/models/t5.py:380"),
+    "flash_relbias": ("markushgrapher_torch/csrc/flash_relbias.cu",
+                      "markushgrapher_tpu/ops/flash_relbias.py:111"),
 }
 FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
@@ -120,7 +136,7 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 # residual add.
 TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
        "decode_i8": (2e-3, 2e-2), "ocr_megastep": (8e-3, 1.6e-2),
-       "flash_bias": (1e-3, 1.6e-2)}
+       "flash_bias": (1e-3, 1.6e-2), "flash_relbias": (1e-3, 1.6e-2)}
 WHOLE_STEP_REL = 2e-2
 # flash_bias also returns the float32 log-sum-exp of each row, summed in
 # float32 by both versions: |kernel - plain| <= 1e-4 + 1e-5 * |plain|.
@@ -133,9 +149,26 @@ GRAD_ULPS, GRAD_REL = 4, 1e-2
 # the training phase: per-device batch, warm and timed steps after the one
 # step whose every flash call is held to its plain version
 TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 8, 2, 5
-# phase 4's paths at batch 8: (name, int4 KV, beams, decode steps)
-PATHS = (("greedy_int4", True, 1, 512), ("beam5_int4", True, 5, 512),
-         ("greedy_int8", False, 1, 512), ("beam5_int8", False, 5, 128))
+# phase 4's paths at batch 8: (name, encoder route of
+# models.markushgrapher.ROUTES, KV scheme, beams, decode steps). "bf16":
+# float caches and weights, the route of configs/predict.yaml; the others
+# decode with int8 weights
+PATHS = (("greedy_int4", "int8 slab", "int4", 1, 512),
+         ("beam5_int4", "int8 slab", "int4", 5, 512),
+         ("greedy_int8", "int8 slab", "int8", 1, 512),
+         ("beam5_int8", "int8 slab", "int8", 5, 128),
+         ("predict_beam5_bf16", "bf16 slab", "bf16", 5, 128),
+         ("inkernel_greedy_int4", "in-kernel bias", "int4", 1, 128),
+         ("packed_greedy_int4", "packed", "int4", 1, 128))
+# the kernels one encode launches along each route
+ROUTE_KERNELS = {"int8 slab": ("bias_build_i8", "flash_i8"),
+                 "bf16 slab": ("flash_bias",),
+                 "in-kernel bias": ("flash_relbias",),
+                 "packed": ("bias_build_i8", "flash_i8")}
+# packed encoder against unpacked, both on the plain path in float32 at the
+# valid positions: the same keys in another summation order, through 24
+# layers of random weights
+PACK_REL = 2e-3
 CHECKED_STEPS = 8
 # the OCR paths: batch, new tokens, and (name, OCREngineConfig flags, the
 # kernel each decode step launches)
@@ -518,6 +551,70 @@ def check_flash_bias(dev) -> dict:
     return out
 
 
+def relbias_inputs(dev, batch: int, seed: int):
+    """flash_relbias's inputs at MG's encoder shape: bf16 q, k, v [B, 1536,
+    16, 64], float32 bbox centres of seeded page boxes, a key mask with the
+    text slots past 300 padded (as page_batch pads them), and three [32, 16]
+    float32 tables N(0, 0.5^2)."""
+    import torch
+
+    L, H, D = 1536, 16, 64
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.tensor(rng.randn(batch, L, H, D).astype(np.float32)
+                            * sc, device=dev).to(torch.bfloat16)
+               for sc in (0.3, 0.3, 1.0))
+    box = np.sort(rng.rand(batch, L, 4).astype(np.float32), axis=-1)
+    hx = torch.tensor((box[..., 0] + box[..., 2]) / 2.0, device=dev)
+    vy = torch.tensor((box[..., 1] + box[..., 3]) / 2.0, device=dev)
+    mask = torch.ones((batch, L), dtype=torch.int32, device=dev)
+    mask[:, 300:512] = 0
+    tables = [torch.tensor(rng.randn(32, H).astype(np.float32) * 0.5,
+                           device=dev) for _ in range(3)]
+    return q, k, v, hx, vy, mask, tables
+
+
+def check_flash_relbias(dev) -> dict:
+    """flash_relbias against its plain version at B=2 and B=8 (the headline,
+    MG's serving batch), H=16, L=1536, D=64, bf16. Bound: 4 B H L^2 D
+    operations over the bf16 tensor rate (the bias costs no bytes: it is
+    computed in the kernel). No single PyTorch call builds the relative
+    bias, so library_ms is None; for scale only, SDPA over a prebuilt bf16
+    slab (bias + mask) is timed and printed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from markushgrapher_torch.ops import flash_relbias as fr
+    from markushgrapher_torch.ops.relbias import centre_position_bias
+
+    out = {}
+    for batch in (2, 8):
+        q, k, v, hx, vy, mask, tables = relbias_inputs(dev, batch,
+                                                       SEED + 7 + batch)
+        args = (q, k, v, hx, vy, mask, *tables)
+        got = fr.flash_attention_relbias(*args)
+        ref = fr.plain(*args)
+        torch.cuda.synchronize()
+        B, L, H, D = q.shape
+        slab = torch.where(mask[:, None, None, :] > 0, centre_position_bias(
+            *tables, hx, vy, L, 32, 128, 100, 100), -1e30).to(torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=slab, scale=1.0))
+        del slab, qt, kt, vt
+        res = dict(max_abs_err=within("flash_relbias", got, ref),
+                   ms=cuda_ms(lambda: fr.flash_attention_relbias(*args)),
+                   plain_ms=cuda_ms(lambda: fr.plain(*args), 3, 1),
+                   library_ms=None,
+                   **bound(nbytes(q, k, v, hx, vy, mask, *tables, got),
+                           4 * B * H * L * L * D))
+        report("flash_relbias", f"B={B} H={H} L={L} D={D} bf16, 212 of "
+               f"{L} keys padded (library: none; for scale, SDPA over a "
+               f"prebuilt bf16 slab {sdpa_ms:.4f} ms)", res)
+        del got, ref
+        out["flash_relbias"] = res
+    return out
+
+
 def ocr_model(dev):
     """OCRConfig() at full width and depth, seeded random bf16 weights."""
     import torch
@@ -780,8 +877,9 @@ def time_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
 
 
 def time_pipeline(ocr, mg, mt, cfg, pages, dev) -> dict:
-    """uint8 pages -> OCR (int4 KV) -> cells -> MG greedy int4, timed end to
-    end (warm models): img/s, the two stages' seconds, and how many rows
+    """uint8 pages -> OCR (int4 KV) -> cells -> MG greedy int4 over the int8
+    slab (`mg` is a model on that route and scheme), timed end to end
+    (warm models): img/s, the two stages' seconds, and how many rows
     emitted loc-grammar cells (random weights: the others take seeded
     fallback cells, as bench_e2e.py does)."""
     import torch
@@ -799,7 +897,6 @@ def time_pipeline(ocr, mg, mt, cfg, pages, dev) -> dict:
     enc = SampleEncoder(mt, max_seq_length=cfg.max_seq_length)
     collate = DataCollator(max_length=cfg.max_seq_length)
     rng = np.random.RandomState(SEED + 4)
-    mg.int4_cross = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids, pix = eng.generate_batch_async(pages, return_pixels=True)
@@ -816,7 +913,8 @@ def time_pipeline(ocr, mg, mt, cfg, pages, dev) -> dict:
     mv = encoder_valid_max(cfg, model_batch["bbox"],
                            model_batch["attention_mask"])
     out = generate(mg, model_batch, max_length=cfg.max_seq_length_decoder,
-                   eos_id=-1, cross_pack_len=-(-mv // 256) * 256)
+                   eos_id=-1, quant_cross_kv=True, quant_weights=True,
+                   cross_pack_len=-(-mv // 256) * 256)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     if out.shape != (pages.shape[0], cfg.max_seq_length_decoder):
@@ -859,12 +957,17 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
     many decode-kernel calls are checked; later ones go to the kernel
     alone. The plain versions launch no kernel, so the launch counts stay
     those of the path."""
-    from markushgrapher_torch.ops import bias_build, flash_attention, mxu_decode
+    from markushgrapher_torch.ops import (bias_build, flash_attention,
+                                          flash_relbias, mxu_decode)
 
     sites = {"bias_build_i8": (bias_build, "encoder_position_bias_kernel_i8",
                                bias_build.plain),
              "flash_i8": (flash_attention, "flash_attention_bias_i8",
                           flash_attention.plain),
+             "flash_bias": (flash_attention, "flash_attention_bias",
+                            flash_attention.plain_bias),
+             "flash_relbias": (flash_relbias, "flash_attention_relbias",
+                               flash_relbias.plain),
              "decode_int4": (mxu_decode, "cross_decode_mxu_int4",
                              mxu_decode.plain_int4),
              "decode_i8": (mxu_decode, "cross_decode_mxu",
@@ -900,22 +1003,48 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
             setattr(mod, attr, saved[name])
 
 
-def drive_path(model, mt, cfg, host: dict, int4: bool, beams: int,
+def eval_config(kv: str, **kw):
+    """EvalConfig of a KV scheme: "int4" / "int8" quantised KV with int8
+    weights (the model's int4_cross must match), "bf16" float caches and
+    weights (configs/predict.yaml sets no quantisation)."""
+    from markushgrapher_torch.eval_pipeline import EvalConfig
+
+    quant = kv != "bf16"
+    return EvalConfig(quant_kv=quant, quant_weights=quant,
+                      int4_cross=kv == "int4", eos_id=-1, **kw)
+
+
+def route_model(model, cfg, host: dict, route: str, kv: str):
+    """The model along an encoder route of the model module's ROUTES (the
+    packed route at the ceil-256 of the batch's VTL valid count) and a KV
+    scheme: a clone over the same weights."""
+    import torch
+
+    from markushgrapher_torch.models.markushgrapher import route_flags
+
+    flags = route_flags(cfg, route, torch.as_tensor(host["bbox"]),
+                        torch.as_tensor(host["attention_mask"]))
+    return model.clone(int4_cross=kv == "int4", **flags)
+
+
+def drive_path(model, mt, cfg, host: dict, route: str, kv: str, beams: int,
                steps: int) -> dict:
     """One path through Evaluator.generate_batch, with every launch count
     zeroed just before and read just after; every kernel call of the
     encode and of the first CHECKED_STEPS decode steps is held to its plain
-    version on the same inputs along the way."""
+    version on the same inputs along the way. The cross caches pack to the
+    batch's ceil-256 valid count under quantised KV (configs/predict.yaml's
+    float KV packs nothing)."""
     import torch
 
-    from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
+    from markushgrapher_torch.eval_pipeline import Evaluator
     from markushgrapher_torch.ops import _build
 
-    model.int4_cross = int4
+    model = route_model(model, cfg, host, route, kv)
     batch = host["input_ids"].shape[0]
-    ev = Evaluator(model, mt, EvalConfig(max_length=steps, num_beams=beams,
-                                         batch_size=batch, eos_id=-1))
-    pack, _ = cross_pack(cfg, host)
+    ev = Evaluator(model, mt, eval_config(kv, max_length=steps,
+                                          num_beams=beams, batch_size=batch))
+    pack = cross_pack(cfg, host)[0] if kv != "bf16" else None
     errs: dict = {}
     checked = CHECKED_STEPS * 2 * cfg.vtl.num_decoder_layers
     with checked_kernels(errs, decode_calls=checked):
@@ -926,8 +1055,41 @@ def drive_path(model, mt, cfg, host: dict, int4: bool, beams: int,
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
     return dict(ids=ids, launches=launches, first_s=time.perf_counter() - t0,
-                inside={name: (max(e), len(e)) for name, e in errs.items()
+                encoder_pack=model.encoder_pack_len, inside={name: (max(e), len(e)) for name, e in errs.items()
                         if e})
+
+
+def packed_vs_unpacked(model, cfg, host: dict, dev) -> float:
+    """The packed encoder's states at the valid positions against the
+    unpacked encoder's (tests/test_encoder_pack.py's contract), both on the
+    plain path in float32 over the int8 slab: max |difference| over max
+    |state|, gated at PACK_REL. The model comes back in bf16 on the kernel
+    path."""
+    import torch
+
+    args = encoder_args(host, dev)
+    model.float()
+    try:
+        enc_u, mask_u = route_model(model, cfg, host, "int8 slab", "int4"
+                                    ).clone(use_kernels=False).encode(*args)
+        enc_p, mask_p = route_model(model, cfg, host, "packed", "int4"
+                                    ).clone(use_kernels=False).encode(*args)
+    finally:
+        model.to(torch.bfloat16)
+    order = torch.argsort((mask_u <= 0).to(torch.int32), dim=1, stable=True)
+    worst = 0.0
+    for b in range(enc_u.shape[0]):
+        nv = int(mask_u[b].sum())
+        if int(mask_p[b, :nv].sum()) != nv or int(mask_p[b, nv:].sum()):
+            raise AssertionError(f"packed encoder mask of row {b} is not "
+                                 f"{nv} valid positions first")
+        ref = enc_u[b, order[b, :nv]]
+        worst = max(worst, float((enc_p[b, :nv] - ref).abs().max()
+                                 / ref.abs().max()))
+    if not worst <= PACK_REL:
+        raise AssertionError(f"packed encoder vs unpacked: {worst:.3e} of "
+                             f"the largest state (gate {PACK_REL})")
+    return worst
 
 
 def compare_to_plain(model, cfg, host: dict, dev) -> dict:
@@ -941,7 +1103,7 @@ def compare_to_plain(model, cfg, host: dict, dev) -> dict:
 
     from markushgrapher_torch.decode.generate import greedy_generate
 
-    model.int4_cross = True
+    model = route_model(model, cfg, host, "int8 slab", "int4")
     steps, batch = cfg.max_seq_length_decoder, host["input_ids"].shape[0]
     pack, _ = cross_pack(cfg, host)
     args = encoder_args(host, dev)
@@ -949,6 +1111,7 @@ def compare_to_plain(model, cfg, host: dict, dev) -> dict:
 
     def greedy8(enc, mask):
         return greedy_generate(model, enc, mask, steps, eos_id=-1,
+                               quant_cross_kv=True, quant_weights=True,
                                cross_pack_len=pack, row_budgets=budget)
 
     enc_k, mask_k = model.encode(*args)
@@ -988,27 +1151,23 @@ def compare_to_plain(model, cfg, host: dict, dev) -> dict:
         match_dec=float((first == ids_pk[:, :8]).float().mean()))
 
 
-def time_path(model, mt, cfg, host: dict, dev, int4: bool,
+def time_path(model, mt, cfg, host: dict, dev, route: str, kv: str,
               beams: int) -> dict:
     """Encode ms, decode ms/step and img/s of one warm generate_batch call
     (a 16-step run at the same batch warms it up)."""
     import torch
 
-    from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
+    from markushgrapher_torch.eval_pipeline import Evaluator
 
-    model.int4_cross = int4
-    pack, _ = cross_pack(cfg, host)
+    model = route_model(model, cfg, host, route, kv)
+    pack = cross_pack(cfg, host)[0] if kv != "bf16" else None
     b, steps = host["input_ids"].shape[0], cfg.max_seq_length_decoder
-    warm = Evaluator(model, mt, EvalConfig(max_length=16, num_beams=beams,
-                                           batch_size=b, eos_id=-1))
+    warm = Evaluator(model, mt, eval_config(kv, max_length=16,
+                                            num_beams=beams, batch_size=b))
     warm.generate_batch(host, cross_pack_len=pack)
-    ev = Evaluator(model, mt, EvalConfig(max_length=steps, num_beams=beams,
-                                         batch_size=b, eos_id=-1))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.encode(*encoder_args(host, dev))
-    torch.cuda.synchronize()
-    enc_ms = (time.perf_counter() - t0) * 1e3
+    ev = Evaluator(model, mt, eval_config(kv, max_length=steps,
+                                          num_beams=beams, batch_size=b))
+    enc_ms = time_encode(model, host, dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev.generate_batch(host, cross_pack_len=pack)
@@ -1018,6 +1177,20 @@ def time_path(model, mt, cfg, host: dict, dev, int4: bool,
                 decode_ms_per_step=(total * 1e3 - enc_ms) / steps,
                 img_per_s=b / total, cross_pack=pack,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def time_encode(model, host: dict, dev, calls: int = 1) -> float:
+    """Host ms of a synchronised encode of the batch along the model's
+    current route, averaged over `calls` warm calls."""
+    import torch
+
+    args = encoder_args(host, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        model.encode(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def train_config():
@@ -1195,6 +1368,7 @@ def main() -> None:
     ocr = ocr_model(dev)
     kres.update(check_ocr_kernels(dev, ocr))
     kres.update(check_flash_bias(dev))
+    kres.update(check_flash_relbias(dev))
 
     # phase 4: the paths at full width, through Evaluator.generate_batch
     with torch.device(dev):
@@ -1206,15 +1380,21 @@ def main() -> None:
           f"encoder max {mv} -> cross pack {pack}", flush=True)
     layers = cfg.vtl.num_decoder_layers
     launches = {}
-    for name, int4, beams, steps in PATHS:
-        res = drive_path(model, mt, cfg, host, int4, beams, steps)
+    for name, route, kv, beams, steps in PATHS:
+        res = drive_path(model, mt, cfg, host, route, kv, beams, steps)
         ids = res["ids"]
-        dec = "decode_int4" if int4 else "decode_i8"
+        dec = {"int4": ("decode_int4",), "int8": ("decode_i8",),
+               "bf16": ()}[kv]
         want = {k: 0 for k in KERNELS}
-        want.update(bias_build_i8=1, flash_i8=cfg.vtl.num_layers)
-        want[dec] = 2 * layers * steps
-        print(f"{name}: {steps} steps, launches {res['launches']} (expected "
-              f"{want}); first run {res['first_s']:.2f} s", flush=True)
+        for kname in ROUTE_KERNELS[route]:
+            want[kname] = 1 if kname == "bias_build_i8" else cfg.vtl.num_layers
+        for kname in dec:
+            want[kname] = 2 * layers * steps
+        packed = res["encoder_pack"]
+        print(f"{name} ({route} encoder{f' to {packed}' if packed else ''}, "
+              f"{kv} KV): {steps} steps, launches {res['launches']} "
+              f"(expected {want}); first run {res['first_s']:.2f} s",
+              flush=True)
         for kname, (err, n) in res["inside"].items():
             print(f"  inside the model, {kname} vs plain on the same inputs: "
                   f"{n} calls (the encode, {CHECKED_STEPS} decode steps), "
@@ -1226,13 +1406,19 @@ def main() -> None:
                 or ids.max() >= cfg.vtl.vocab_size:
             raise AssertionError(f"{name}: bad ids {ids.shape} "
                                  f"[{ids.min()}, {ids.max()}]")
-        if set(res["inside"]) != {"bias_build_i8", "flash_i8", dec}:
+        if set(res["inside"]) != set(ROUTE_KERNELS[route]) | set(dec):
             raise AssertionError(f"{name}: kernels checked inside the model: "
                                  f"{sorted(res['inside'])}")
         for r in range(2):
             print(f"  row {r}: {mt.decode(ids[r][:40])[:160]!r}", flush=True)
         for kname, n in res["launches"].items():
             launches[kname] = launches.get(kname, 0) + n
+    err = packed_vs_unpacked(model, cfg, host, dev)
+    packed = route_model(model, cfg, host, "packed", "int4").encoder_pack_len
+    print(f"packed encoder (pack {packed}) vs unpacked on "
+          f"the plain path in float32, at the valid positions: max abs "
+          f"difference {err:.3e} of the largest state (gate {PACK_REL})",
+          flush=True)
     e2e = compare_to_plain(model, cfg, host, dev)
     print(f"greedy_int4 end to end vs the plain path: encoder states rel L2 "
           f"{e2e['enc_err']:.3e}, first 8 greedy tokens match "
@@ -1298,14 +1484,24 @@ def main() -> None:
           f"{float((ids_k == ids_p).float().mean()):.3f}", flush=True)
 
     # phase 5: timing (warm), 512 steps, eos never firing
-    hosts = {8: host}
-    for label, int4, beams, sizes in (("greedy int4", True, 1, (8, 48)),
-                                      ("beam-5 int4", True, 5, (8, 16)),
-                                      ("greedy int8", False, 1, (8, 48))):
+    hosts = {8: host, 48: page_batch(cfg, 48, SEED + 1, mt)}
+    for b in (8, 48):
+        for route in ROUTE_KERNELS:
+            routed = route_model(model, cfg, hosts[b], route, "int4")
+            time_encode(routed, hosts[b], dev)                # warm
+            ms = time_encode(routed, hosts[b], dev, calls=3)
+            packed = routed.encoder_pack_len
+            print(f"timing encode {route}{f' to {packed}' if packed else ''}"
+                  f" b{b}: {ms:.1f} ms on {card}", flush=True)
+    for label, route, kv, beams, sizes in (
+            ("greedy int4", "int8 slab", "int4", 1, (8, 48)),
+            ("beam-5 int4", "int8 slab", "int4", 5, (8, 16)),
+            ("greedy int8", "int8 slab", "int8", 1, (8, 48)),
+            ("predict.yaml beam-5 bf16", "bf16 slab", "bf16", 5, (8,))):
         for b in sizes:
             if b not in hosts:
                 hosts[b] = page_batch(cfg, b, SEED + 1, mt)
-            t = time_path(model, mt, cfg, hosts[b], dev, int4, beams)
+            t = time_path(model, mt, cfg, hosts[b], dev, route, kv, beams)
             print(f"timing {label} b{b}: encode {t['encode_ms']:.1f} ms, "
                   f"decode {t['decode_ms_per_step']:.3f} ms/step, "
                   f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
@@ -1316,7 +1512,8 @@ def main() -> None:
         print(f"timing {name} b{OCR_BATCH}: prefill {t['prefill_ms']:.1f} ms, "
               f"decode {t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.3f} "
               f"img/s ({OCR_TOKENS} new tokens) on {card}", flush=True)
-    t = time_pipeline(ocr, model, mt, cfg, pages, dev)
+    t = time_pipeline(ocr, route_model(model, cfg, host, "int8 slab", "int4"),
+                      mt, cfg, pages, dev)
     print(f"timing pipeline b{OCR_BATCH} (pages -> OCR int4, {OCR_TOKENS} "
           f"tokens -> cells -> MG greedy int4, "
           f"{cfg.max_seq_length_decoder} steps): {t['img_per_s']:.3f} img/s "

@@ -2,9 +2,11 @@
 `markushgrapher_tpu.decode.generate`).
 
 The encoder runs once per batch; decoding is a Python loop over steps
-against preallocated quantised KV caches (the model's KV scheme, int4 or
-int8), with early exit once every row has finished (greedy) or the beam
-search halts.
+against preallocated KV caches, with early exit once every row has finished
+(greedy) or the beam search halts. As in the reference, `quant_cross_kv`
+picks quantised caches (the model's `int4_cross` scheme, int4 or int8) over
+float caches in the model's dtype, and `quant_weights` the int8 decode
+weights over the model's own.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from markushgrapher_torch.models.t5 import reorder_self_rings
+from markushgrapher_torch.ops.fusion import pack_valid_first
 from markushgrapher_torch.ops.relbias import mask_bias
 
 NEG_INF = -1e9
@@ -26,47 +29,55 @@ def pack_encoder_for_cross(enc: torch.Tensor, enc_mask: torch.Tensor,
     so their order is kept) and truncate to `packed_len`, which must bound
     every row's valid count. Cross-attention is a softmax over a set of keys,
     so only float summation order changes."""
-    order = torch.argsort((enc_mask <= 0).to(torch.int32), dim=1,
-                          stable=True)
-    enc_p = torch.gather(enc, 1, order[..., None].expand(-1, -1,
-                                                         enc.shape[-1]))
-    mask_p = torch.gather(enc_mask, 1, order)
-    return enc_p[:, :packed_len], mask_p[:, :packed_len]
+    _, mask_p, enc_p = pack_valid_first(enc_mask, packed_len, enc)
+    return enc_p, mask_p
 
 
-def _prepare(model, enc, enc_mask, max_length, cross_pack_len, self_rows):
-    """Pack the encoder states, build the caches ([B]-row cross slabs,
-    `self_rows` self rings), the int8 decode weights, the causal decoder
-    bias and the cross mask bias [B, 1, Kp]."""
-    if cross_pack_len is not None and cross_pack_len < enc.shape[1]:
-        enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
-    caches = model.init_cache(enc, max_length, self_rows=self_rows)
-    qw = model.quantize_weights()
+def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, ...] -> [B*K, ...], each row repeated K times."""
+    return x.repeat_interleave(k, dim=0)
+
+
+def _prepare(model, enc, enc_mask, max_length, self_rows, quant_cross_kv,
+             quant_weights):
+    """The caches (cross K/V of enc's rows, `self_rows` self caches), the
+    int8 decode weights (or None), the causal decoder bias and the cross
+    mask bias [B, 1, K] (padding of a quantised slab's key axis at
+    -1e9)."""
+    caches = model.init_cache(enc, max_length, quant_cross_kv,
+                              self_rows=self_rows)
+    qw = model.quantize_weights() if quant_weights else None
     bias_full = model.full_decoder_bias(max_length)
-    kp = caches[0]["cross_k_s"].shape[-1]
-    cross_bias = F.pad(mask_bias(enc_mask)[:, :1, 0, :],
-                       (0, kp - enc_mask.shape[1]), value=NEG_INF)
+    cross_bias = mask_bias(enc_mask)[:, :1, 0, :]
+    if quant_cross_kv:
+        kp = caches[0]["cross_k_s"].shape[-1]
+        cross_bias = F.pad(cross_bias, (0, kp - enc_mask.shape[1]),
+                           value=NEG_INF)
     return caches, qw, bias_full, cross_bias
 
 
 @torch.no_grad()
 def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                     max_length: int, eos_id: int = 1, pad_id: int = 0,
-                    start_id: int = 0,
+                    start_id: int = 0, quant_cross_kv: bool = False,
+                    quant_weights: bool = False,
                     cross_pack_len: Optional[int] = None,
                     row_budgets: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Returns generated ids [B, max_length] (pad after EOS).
 
-    Serves the model's quantised KV scheme with int8 weights (the
-    reference's quant_cross_kv + quant_weights path, int4 or int8 KV by the
-    model's `int4_cross`). row_budgets ([B] ints, optional) caps each row's
-    tokens; positions past a row's budget are pad, and a budget of 0 emits
-    only pad."""
+    quant_cross_kv serves the model's quantised KV scheme (int4 or int8 by
+    its `int4_cross`), else float caches; quant_weights the int8 decode
+    weights. row_budgets ([B] ints, optional) caps each row's tokens;
+    positions past a row's budget are pad, and a budget of 0 emits only
+    pad."""
     batch = enc.shape[0]
     dev = enc.device
+    if cross_pack_len is not None and cross_pack_len < enc.shape[1]:
+        enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
     caches, qw, bias_full, cross_bias = _prepare(
-        model, enc, enc_mask, max_length, cross_pack_len, None)
+        model, enc, enc_mask, max_length, None, quant_cross_kv,
+        quant_weights)
     budgets = None if row_budgets is None else torch.as_tensor(
         row_budgets, device=dev)
 
@@ -109,6 +120,7 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                   max_length: int, num_beams: int = 5, eos_id: int = 1,
                   pad_id: int = 0, start_id: int = 0,
                   length_penalty: float = 1.0, early_stopping: bool = False,
+                  quant_cross_kv: bool = False, quant_weights: bool = False,
                   cross_pack_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search with HF `_beam_search` semantics, step for step as the
@@ -123,13 +135,20 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
     filled. Returns (ids [B, max_length], scores [B]) of the best finished
     hypothesis.
 
-    The cross slabs keep one row per sample and the self rings B*K rows;
-    after each step the rings' live prefix is reordered by parent beam."""
+    With quant_cross_kv the quantised cross slabs keep one row per sample
+    (the beams share it) and the self rings B*K rows; float caches tile the
+    encoder states and mask per beam, as the reference's. After each step
+    the self caches' live prefix is reordered by parent beam."""
     batch = enc.shape[0]
     dev = enc.device
     k = num_beams
+    if cross_pack_len is not None and cross_pack_len < enc.shape[1]:
+        enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
+    if not quant_cross_kv:
+        enc, enc_mask = _tile_beams(enc, k), _tile_beams(enc_mask, k)
     caches, qw, bias_full, cross_bias = _prepare(
-        model, enc, enc_mask, max_length, cross_pack_len, batch * k)
+        model, enc, enc_mask, max_length, batch * k, quant_cross_kv,
+        quant_weights)
 
     f32 = dict(dtype=torch.float32, device=dev)
     # beam 0 active, the others muted at step 0 so all beams start identical
@@ -201,7 +220,8 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
 @torch.no_grad()
 def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
              num_beams: int = 1, eos_id: int = 1, pad_id: int = 0,
-             start_id: int = 0,
+             start_id: int = 0, quant_cross_kv: bool = False,
+             quant_weights: bool = False,
              cross_pack_len: Optional[int] = None) -> torch.Tensor:
     """Encode + decode (greedy, or beam search for num_beams > 1). `batch`
     holds input_ids / bbox / attention_mask and the pixel inputs the
@@ -209,11 +229,11 @@ def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
     enc, enc_mask = model.encode(
         batch["input_ids"], batch["bbox"], batch["attention_mask"],
         batch.get("pixel_values"), batch.get("ocsr_pixel_values"))
+    kw = dict(quant_cross_kv=quant_cross_kv, quant_weights=quant_weights,
+              cross_pack_len=cross_pack_len)
     if num_beams <= 1:
         return greedy_generate(model, enc, enc_mask, max_length, eos_id,
-                               pad_id, start_id,
-                               cross_pack_len=cross_pack_len)
+                               pad_id, start_id, **kw)
     ids, _ = beam_generate(model, enc, enc_mask, max_length, num_beams,
-                           eos_id, pad_id, start_id,
-                           cross_pack_len=cross_pack_len)
+                           eos_id, pad_id, start_id, **kw)
     return ids

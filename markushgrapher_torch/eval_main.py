@@ -6,12 +6,13 @@ and dataset, runs batched generation on the port (beam 5 when `beam_search:
 true`, as the reference's predict config) and writes `predictions_<N>.jsonl`
 / `scores_<N>.json` under `<output_dir>/predictions`.
 
-Only the serving path is ported, so the YAML must set `quant_kv`,
-`quant_weights`, `bias_int8` and `bias_kernel` to true (the reference's
-defaults leave them off and reach the float-bias flash encoder and the
-float-KV decode, which are not ported: ROADMAP queue 2). `int4_cross`
-picks the KV scheme: int4 when true, else int8. Runs on the CUDA device
-unless the caller passes `device="cpu"`. Weights: `model_name_or_path` may
+The model is built as the reference's: `bias_int8`, `bias_kernel`,
+`encoder_pack_len` and `int4_cross` from the YAML pick the encoder route and
+the quantised KV scheme, and `quant_kv` / `quant_weights` / `int4_cross` /
+`cross_pack_len` reach the `EvalConfig`. With none of them set (the
+reference's `configs/predict.yaml`) the encoder runs the bf16 bias slab and
+decode uses bf16 KV caches and bf16 weights. Runs on the CUDA device unless
+the caller passes `device="cpu"`. Weights: `model_name_or_path` may
 name an `.npz` of the flattened flax parameter tree ("/"-joined paths,
 through `convert.from_jax`); otherwise the model runs from a seeded random
 init. Orbax checkpoint restore is not ported yet.
@@ -41,17 +42,7 @@ logger = logging.getLogger(__name__)
 REMOVE_STEREO = True
 FIX_CXSMILES = True
 INPUT_ENCODING_TRAINING_DATASET = "mdu_3005"
-SERVING_FLAGS = ("quant_kv", "quant_weights", "bias_int8", "bias_kernel")
 BEAMS = 5                       # the reference's predict mode (beam_search)
-
-
-def require_serving_flags(margs) -> None:
-    off = [f for f in SERVING_FLAGS if not getattr(margs, f)]
-    if off:
-        raise ValueError(
-            f"markushgrapher_torch serves only the int8-bias flash encoder "
-            f"and the int4- or int8-KV, int8-weight decode; set {off} to "
-            "true in the config (the other paths are ROADMAP queue 2)")
 
 
 def load_npz_tree(path: str) -> Dict:
@@ -70,7 +61,10 @@ def load_npz_tree(path: str) -> Dict:
 def build_model(margs, dargs, device) -> MarkushGrapherModel:
     cfg = build_model_config(margs, dargs)
     with torch.device(device):
-        model = MarkushGrapherModel(cfg, int4_cross=margs.int4_cross)
+        model = MarkushGrapherModel(cfg, int4_cross=margs.int4_cross,
+                                    bias_int8=margs.bias_int8,
+                                    bias_kernel=margs.bias_kernel,
+                                    encoder_pack_len=margs.encoder_pack_len)
     path = margs.model_name_or_path
     if path and path.endswith(".npz") and os.path.isfile(path):
         logger.info("loading weights %s", path)
@@ -88,7 +82,6 @@ def main(config_path: Optional[str] = None,
                                "%(message)s")
     config_path = config_path or sys.argv[1]
     margs, dargs, targs = parse_yaml_config(config_path)
-    require_serving_flags(margs)
     device = device or "cuda"
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -117,7 +110,8 @@ def main(config_path: Optional[str] = None,
         max_eval_samples=dargs.max_eval_samples,
         remove_stereo=REMOVE_STEREO, fix_cxsmiles=FIX_CXSMILES,
         save_visualizations=dargs.save_visualizations,
-        cross_pack_len=margs.cross_pack_len,
+        quant_kv=margs.quant_kv, quant_weights=margs.quant_weights,
+        int4_cross=margs.int4_cross, cross_pack_len=margs.cross_pack_len,
         output_dir=os.path.join(targs.output_dir, "predictions"))
     evaluator = Evaluator(model, test_ds.markush_tokenizer, eval_cfg,
                           input_tokenizer=input_mt)

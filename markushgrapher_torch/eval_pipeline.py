@@ -5,9 +5,10 @@ beam search) -> decode -> chemistry scoring -> artifacts (port of
 Writes the reference's artifacts: `predictions_<N>.jsonl` rows {id, cxsmiles,
 cxsmiles_opt, gt_cxsmiles, gt_cxsmiles_opt, prediction_text} and
 `scores_<N>.json`, with a prediction pickle cache keyed on the decode config,
-the KV scheme and a weights fingerprint. Scoring uses the port's own copies
-of the chemistry modules (`markushgrapher_torch.chem`). Length-bucketed
-batching is not ported yet.
+the KV scheme, the encoder route and a weights fingerprint. Scoring uses the port's own copies
+of the chemistry modules (`markushgrapher_torch.chem`). With
+`length_buckets` the samples are grouped by their valid encoder count into
+static pack lengths (`data.bucketing`), each batch packed to its bucket's.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from markushgrapher_torch.chem.evaluation import aggregate_scores, score_sample
 from markushgrapher_torch.data.collator import DataCollator
 from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
 from markushgrapher_torch.decode.generate import generate
-from markushgrapher_torch.models.markushgrapher import encoder_valid_max
+from markushgrapher_torch.data.bucketing import bucket_pack_lengths
+from markushgrapher_torch.models.markushgrapher import (encoder_valid_counts,
+                                                        encoder_valid_max)
 
 logger = logging.getLogger(__name__)
 
@@ -50,9 +53,18 @@ class EvalConfig:
     output_dir: str = "eval_out"
     cache_predictions: bool = True
     bf16_params: bool = True     # serve with bf16 weights
+    quant_kv: bool = False       # quantised KV caches (else float)
+    quant_weights: bool = False  # int8 decode-step weights
+    int4_cross: bool = False     # int4 KV (the model must be built with it)
     # static packed cross-cache length (0 = off); must bound every row's
     # valid encoder count (models.markushgrapher.encoder_valid_max)
     cross_pack_len: int = 0
+    # length-bucketed batching (0 = off, else the number of buckets, >= 2):
+    # samples grouped by valid encoder count into static pack lengths
+    # (data.bucketing); overrides cross_pack_len, which becomes the cap
+    length_buckets: int = 0
+    bucket_round_to: int = 256   # pack lengths round up to this multiple
+    bucket_margin: int = 64      # headroom above each sample's valid count
     save_visualizations: int = 0
     # -1 never fires: a benchmark on random weights decodes max_length steps
     eos_id: int = 1
@@ -70,12 +82,18 @@ class Evaluator:
                  cfg: EvalConfig, abbreviation: Optional[Abbreviation] = None,
                  input_tokenizer: Optional[MarkushTokenizer] = None):
         """`model` is a `markushgrapher_torch` MarkushGrapherModel holding
-        its weights on the device it serves from; it serves its quantised
-        KV scheme (`model.int4_cross`: int4, else int8) with int8 decode
-        weights. markush_tokenizer (default: the standard
-        `MarkushTokenizer()`) decodes and parses predictions;
+        its weights on the device it serves from (cast to bf16 with
+        `bf16_params`, as the reference's `cast_params`); it decodes with
+        `cfg.quant_kv` (its `int4_cross` scheme) or float caches and, with
+        `cfg.quant_weights`, int8 decode weights. markush_tokenizer
+        (default: the standard `MarkushTokenizer()`) decodes and parses
+        predictions;
         input_tokenizer (default: the same) parses ground-truth
         annotations."""
+        if cfg.quant_kv and cfg.int4_cross != model.int4_cross:
+            raise ValueError(f"EvalConfig.int4_cross={cfg.int4_cross} but "
+                             f"the model decodes with int4_cross="
+                             f"{model.int4_cross}")
         if cfg.bf16_params:
             model = model.to(torch.bfloat16)
         self.model = model.eval()
@@ -93,40 +111,57 @@ class Evaluator:
 
     def generate_batch(self, batch: Dict[str, np.ndarray],
                        cross_pack_len: Optional[int] = None) -> np.ndarray:
-        """Collated numpy batch -> generated ids [B, max_length] (numpy)."""
-        pack = cross_pack_len or self.cfg.cross_pack_len or None
+        """Collated numpy batch -> generated ids [B, max_length] (numpy).
+        cross_pack_len overrides cfg.cross_pack_len for this batch (the
+        length-bucketed loop passes each bucket's length)."""
+        pack = (cross_pack_len if cross_pack_len is not None
+                else (self.cfg.cross_pack_len or None))
         model_batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                        for k, v in batch.items() if k in MODEL_INPUTS}
-        if pack:
-            # a packed length below a row's valid count would silently drop
-            # valid keys: check every batch
+        # a packed length below a row's valid count would silently drop
+        # valid keys: check every batch. The cross caches hold the whole
+        # encoder output, the packed VTL encoder only its own positions (the
+        # reference holds both to the whole count, which refuses batches
+        # that pack fine once molscribe tokens precede the VTL ones)
+        for name, length, with_mols in (
+                ("cross_pack_len", pack, True),
+                ("encoder_pack_len", self.model.encoder_pack_len, False)):
+            if not length:
+                continue
             mv = encoder_valid_max(self.model.cfg, model_batch["bbox"],
-                                   model_batch["attention_mask"])
-            if mv > pack:
+                                   model_batch["attention_mask"], with_mols)
+            if mv > length:
                 raise ValueError(
-                    f"packed length {pack} < batch valid count {mv}: raise "
-                    "cross_pack_len (size via encoder_valid_max, rounded up)")
+                    f"packed length {length} < batch valid count {mv}: "
+                    f"raise {name} (size via "
+                    "models.markushgrapher.encoder_valid_max, rounded up)")
         out = generate(self.model, model_batch,
                        max_length=self.cfg.max_length,
                        num_beams=self.cfg.num_beams,
                        eos_id=self.cfg.eos_id,
+                       quant_cross_kv=self.cfg.quant_kv,
+                       quant_weights=self.cfg.quant_weights,
                        cross_pack_len=pack)
         return out.cpu().numpy()
 
     # -- the loop -----------------------------------------------------------
 
     def _cache_digest(self) -> str:
-        """Key the prediction cache on the decode config, the KV scheme
-        and a weights fingerprint, so stale predictions are never
+        """Key the prediction cache on what changes predictions: the decode
+        config, the KV scheme and encoder route the model runs, the pack
+        lengths and a weights fingerprint, so stale predictions are never
         re-scored."""
         if self._params_fp is None:
             self._params_fp = float(sum(
                 p.detach().to(torch.float32).sum().item()
                 for p in self.model.parameters()))
-        cfg = self.cfg
-        kv = "int4" if self.model.int4_cross else "int8"
+        cfg, m = self.cfg, self.model
         key = (f"torch;beams={cfg.num_beams};len={cfg.max_length};"
-               f"kv={kv};xp={cfg.cross_pack_len};"
+               f"qkv={cfg.quant_kv};qw={cfg.quant_weights};"
+               f"i4={cfg.quant_kv and m.int4_cross};xp={cfg.cross_pack_len};"
+               f"lb={cfg.length_buckets},{cfg.bucket_round_to},"
+               f"{cfg.bucket_margin};bias_int8={m.bias_int8};"
+               f"inkernel={m.inkernel_bias};ep={m.encoder_pack_len};"
                f"bf16={cfg.bf16_params};fp={self._params_fp:.6e}")
         return hashlib.md5(key.encode()).hexdigest()[:10]
 
@@ -153,31 +188,37 @@ class Evaluator:
         batch_samples: List[Dict] = []
         batch_meta: List[Dict] = []
 
-        def flush():
+        def save_cache():
+            if cfg.cache_predictions:
+                with open(cache_path, "wb") as f:
+                    pickle.dump(cached, f)
+
+        def flush(pack_len: Optional[int] = None):
             nonlocal batch_samples, batch_meta
+            if not batch_samples:
+                return
             todo = [i for i, m in enumerate(batch_meta)
                     if m["id"] not in cached]
             if todo:
                 samples = [batch_samples[i] for i in todo]
                 while len(samples) < cfg.batch_size:   # fixed batch shape
                     samples.append(samples[-1])
-                ids_out = self.generate_batch(collator(samples))
+                ids_out = self.generate_batch(collator(samples),
+                                              cross_pack_len=pack_len)
                 for k, i in enumerate(todo):
                     cached[batch_meta[i]["id"]] = self.mt.decode(ids_out[k])
             for m in batch_meta:
                 self._score_one(m, cached[m["id"]], predictions, per_sample)
             batch_samples, batch_meta = [], []
-            if cfg.cache_predictions:
-                with open(cache_path, "wb") as f:
-                    pickle.dump(cached, f)
 
-        for idx in range(n):
+        def push(idx: int, pack_len: Optional[int]) -> None:
             item = dataset[idx]
             meta = {
                 "id": item.pop("id", idx),
                 "gt_cxsmiles_opt": dataset.source[idx].get("cxsmiles_opt", ""),
                 "gt_annotation": dataset.source[idx].get("annotation", ""),
             }
+            # visualisations follow the dataset index, bucketed or not
             if idx < cfg.save_visualizations:
                 from markushgrapher_torch.data.dataset import resize_image
 
@@ -189,9 +230,20 @@ class Evaluator:
             batch_samples.append(item)
             batch_meta.append(meta)
             if len(batch_samples) == cfg.batch_size:
-                flush()
-        if batch_samples:
+                flush(pack_len)
+                save_cache()
+
+        if cfg.length_buckets >= 2:
+            # bucket-major order: batches never span buckets
+            for pack_len, idxs in self._assign_buckets(dataset, n, collator):
+                for idx in idxs:
+                    push(int(idx), pack_len)
+                flush(pack_len)
+        else:
+            for idx in range(n):
+                push(idx, None)
             flush()
+        save_cache()
 
         elapsed = time.time() - t0
         scores = aggregate_scores(per_sample, prefix=f"{benchmark_name}_ar_")
@@ -200,6 +252,35 @@ class Evaluator:
         self._write_artifacts(predictions, scores, n)
         return EvalResult(scores=scores, predictions=predictions,
                           per_sample=per_sample)
+
+    def _assign_buckets(self, dataset, n: int, collator: DataCollator):
+        """First pass: per-sample valid encoder counts (bbox and
+        attention_mask only, 64 samples per call) -> static pack-length
+        buckets [(pack_len or None, sample indices)]. A bucket whose length
+        reaches the unpacked encoder length runs unpacked (None)."""
+        cfg_m = self.model.cfg
+        counts = np.zeros(n, np.int64)
+        chunk, base = [], 0
+        for idx in range(n):
+            item = dataset[idx]
+            chunk.append({k: item[k] for k in ("bbox", "attention_mask")})
+            if len(chunk) == 64 or idx == n - 1:
+                cb = collator(chunk)
+                c = encoder_valid_counts(
+                    cfg_m, torch.as_tensor(cb["bbox"], device=self.device),
+                    torch.as_tensor(cb["attention_mask"], device=self.device))
+                counts[base:base + len(chunk)] = c.cpu().numpy()
+                base += len(chunk)
+                chunk = []
+        buckets = bucket_pack_lengths(counts, self.cfg.length_buckets,
+                                      round_to=self.cfg.bucket_round_to,
+                                      margin=self.cfg.bucket_margin,
+                                      cap=self.cfg.cross_pack_len or None)
+        total = cfg_m.encoder_total_len
+        out = [(None if ln >= total else ln, idxs) for ln, idxs in buckets]
+        logger.info("length buckets: %s",
+                    [(ln, len(idxs)) for ln, idxs in out])
+        return out
 
     # -- scoring -------------------------------------------------------------
 

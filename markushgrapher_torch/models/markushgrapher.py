@@ -1,13 +1,30 @@
 """MarkushGrapher model: OCSR Swin branch + VTL (UDOP) encoder and a T5
-decoder; port of `markushgrapher_tpu.models.markushgrapher` for serving.
+decoder; port of `markushgrapher_tpu.models.markushgrapher` for serving and
+training.
 
-`encode` serves the VTL encoder one way, at every fused length: one int8
-[B, H, L, L] bias slab from `ops.bias_build` shared by every layer's
-`ops.flash_attention` (the reference's flash + bias_int8 + bias_kernel
-branch). The decode side serves quantised KV caches (int4 or int8, the
-reference's `int4_cross` flag) with int8 weights. The float-bias flash
-branch, the float-KV decode and `encoder_pack_len` are not ported
-(ROADMAP).
+`encode` serves the reference's four VTL encoder routes, chosen as
+`markushgrapher.py:287-360` chooses them:
+  1. `encoder_pack_len` (0 = off) first packs each row's valid positions to
+     a contiguous prefix (stable) and truncates the encoder to that length;
+     the original indices travel into the bias builders as `positions`;
+  2. `inkernel_bias` (not packed): every layer's `ops.flash_relbias` kernel
+     computes the relative bias itself, no slab is built;
+  3. `bias_int8`: one int8 [B, H, L, L] slab from `ops.bias_build`, shared
+     by every layer's `ops.flash_attention.flash_attention_bias_i8`;
+  4. otherwise one bf16 slab with the key mask in it
+     (`relbias.encoder_position_bias_chunked`), shared by every layer's
+     `ops.flash_attention.flash_attention_bias`.
+Every route runs the flash kernels at every fused length: the reference's
+256- and 512-multiple gates are TPU block rules (its kernels tile by 256 /
+512; these need no tile multiple). `bias_kernel` and `bias_kernel_relayout`
+only pick the reference's TPU builder for the int8 slab (its one-hot MXU
+kernel, and how that kernel lays tiles out); the port's CUDA builder is
+bit-exact against the plain gather builder, so both flags are accepted and
+change nothing.
+
+The decode side serves float caches in the model's dtype, or quantised KV
+caches (int4 or int8, the reference's `int4_cross` flag), with the modules'
+weights or int8 decode weights (`quantize_weights`).
 
 `use_kernels=False` makes the model call each kernel's plain PyTorch version
 directly on any device: the reference path that the card's kernels are held
@@ -26,6 +43,7 @@ layer in backward.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -38,7 +56,8 @@ from markushgrapher_torch.models.swin import LayerNorm, SwinEncoder
 from markushgrapher_torch.models.t5 import (RMSNorm, Decoder, Encoder,
                                             quantize_w, train_chunk_q)
 from markushgrapher_torch.ops import bias_build, relbias
-from markushgrapher_torch.ops.fusion import combine_image_text_embeddings
+from markushgrapher_torch.ops.fusion import (combine_image_text_embeddings,
+                                             pack_valid_first)
 
 
 def _molscribe_tokens(cfg: MarkushGrapherConfig) -> int:
@@ -70,6 +89,26 @@ def encoder_valid_max(cfg: MarkushGrapherConfig, bbox: torch.Tensor,
     callers round it up to pick a static `cross_pack_len`."""
     return int(encoder_valid_counts(cfg, bbox, attention_mask,
                                     include_molscribe).max())
+
+
+# the serving encoder's routes by name, as constructor flags; the packed
+# route's encoder_pack_len is sized for each batch by `route_flags`
+ROUTES = {"int8 slab": dict(bias_int8=True), "bf16 slab": {},
+          "in-kernel bias": dict(inkernel_bias=True),
+          "packed": dict(bias_int8=True, encoder_pack_len=None)}
+
+
+def route_flags(cfg: MarkushGrapherConfig, route: str, bbox: torch.Tensor,
+                attention_mask: torch.Tensor) -> Dict:
+    """Constructor flags of a route of ROUTES for one batch: the packed
+    route packs to the ceil-256 of the batch's VTL valid count (without the
+    molscribe tokens), as the reference's bench sizes encoder_pack_len."""
+    flags = dict(ROUTES[route])
+    if "encoder_pack_len" in flags:
+        mv = encoder_valid_max(cfg, bbox, attention_mask,
+                               include_molscribe=False)
+        flags["encoder_pack_len"] = -(-mv // 256) * 256
+    return flags
 
 
 class CellEmbeddings(nn.Module):
@@ -121,14 +160,26 @@ class MLPProjector(nn.Module):
 
 class MarkushGrapherModel(nn.Module):
     def __init__(self, cfg: MarkushGrapherConfig, use_kernels: bool = True,
-                 int4_cross: bool = True, remat: bool = False):
+                 int4_cross: bool = True, remat: bool = False,
+                 bias_int8: bool = False, bias_kernel: bool = False,
+                 bias_kernel_relayout: str = "kernel",
+                 inkernel_bias: bool = False, encoder_pack_len: int = 0):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
         # training: recompute each encoder / decoder layer in backward
         self.remat = remat
-        # KV scheme of the decode caches: int4 (True) or int8 (False)
+        # quantised KV scheme of the decode caches: int4 (True) or int8
         self.int4_cross = int4_cross
+        # the serving encoder's routes (module docstring); bias_kernel and
+        # bias_kernel_relayout pick a TPU builder and change nothing here
+        self.bias_int8 = bias_int8
+        self.bias_kernel = bias_kernel
+        self.bias_kernel_relayout = bias_kernel_relayout
+        self.inkernel_bias = inkernel_bias
+        # static packed VTL encoder length (0 = off): must bound every row's
+        # VTL valid count (encoder_valid_max without the molscribe tokens)
+        self.encoder_pack_len = encoder_pack_len
         vtl = cfg.vtl
         nb, heads = vtl.relative_attention_num_buckets, vtl.num_heads
         self.shared_embedding = nn.Parameter(
@@ -157,6 +208,22 @@ class MarkushGrapherModel(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.shared_embedding.dtype
+
+    # the constructor's flags after cfg, which `clone` may replace
+    FLAGS = ("use_kernels", "int4_cross", "remat", "bias_int8", "bias_kernel",
+             "bias_kernel_relayout", "inkernel_bias", "encoder_pack_len")
+
+    def clone(self, **flags) -> "MarkushGrapherModel":
+        """This model with some constructor flags replaced (an encoder
+        route, the KV scheme) over the same submodules and weights, shared,
+        not copied: the counterpart of the reference's flax `clone`."""
+        unknown = set(flags) - set(self.FLAGS)
+        if unknown:
+            raise TypeError(f"not a constructor flag: {sorted(unknown)}")
+        other = copy.copy(self)
+        for name, value in flags.items():
+            setattr(other, name, value)
+        return other
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "MarkushGrapherModel":
@@ -216,20 +283,48 @@ class MarkushGrapherModel(nn.Module):
                 self.patch_embed(pixel_values), self.embed_tokens(input_ids),
                 bbox, attention_mask, vtl.num_patches_side)
             embeds = embeds + self.cell2d(full_bbox)
-            seq_len = embeds.shape[1]
-            build = (bias_build.encoder_position_bias_kernel_i8
-                     if self.use_kernels else bias_build.plain)
-            bias_i8, scales = build(
-                self.enc_bias_1d, self.enc_bias_h, self.enc_bias_v,
-                full_bbox, full_mask, seq_len,
-                vtl.relative_attention_num_buckets,
-                vtl.relative_attention_max_distance,
-                vtl.rel2d_scaling_factor, vtl.rel2d_max_distance)
-            e2 = self.encoder(embeds, (bias_i8, scales, full_mask),
-                              self.use_kernels)
+            positions = None
+            if 0 < self.encoder_pack_len < embeds.shape[1]:
+                # padding kept inside the static length stays masked; the
+                # original indices keep the 1d buckets' distances
+                order, full_mask, embeds, full_bbox = pack_valid_first(
+                    full_mask, self.encoder_pack_len, embeds, full_bbox)
+                positions = order.to(torch.int32)
+            e2 = self.encoder(embeds, self.encoder_bias(
+                full_bbox, full_mask, positions), self.use_kernels)
             branches.append(e2)
             masks.append(full_mask)
         return torch.cat(branches, dim=1), torch.cat(masks, dim=1)
+
+    def encoder_bias(self, full_bbox: torch.Tensor, full_mask: torch.Tensor,
+                     positions: Optional[torch.Tensor] = None):
+        """The serving encoder's bias, in the form its route gives every
+        layer's attention (`t5.Attention.forward`): the in-kernel bias
+        inputs (a dict) when `inkernel_bias` is set and the encoder is not
+        packed, else the int8 slab tuple when `bias_int8`, else the bf16
+        slab with the key mask at -1e9."""
+        vtl = self.cfg.vtl
+        seq_len = full_bbox.shape[1]
+        geometry = (vtl.relative_attention_num_buckets,
+                    vtl.relative_attention_max_distance,
+                    vtl.rel2d_scaling_factor, vtl.rel2d_max_distance)
+        tables = (self.enc_bias_1d, self.enc_bias_h, self.enc_bias_v)
+        if self.inkernel_bias and positions is None:
+            hx, vy = relbias.bbox_centres(full_bbox)
+            return dict(hx=hx, vy=vy, mask=full_mask, bias_1d=tables[0],
+                        bias_h=tables[1], bias_v=tables[2],
+                        max_dist_1d=vtl.relative_attention_max_distance,
+                        max_dist_2d=vtl.rel2d_max_distance,
+                        scaling_2d=vtl.rel2d_scaling_factor)
+        if self.bias_int8:
+            build = (bias_build.encoder_position_bias_kernel_i8
+                     if self.use_kernels else bias_build.plain)
+            bias_i8, scales = build(*tables, full_bbox, full_mask, seq_len,
+                                    *geometry, positions=positions)
+            return bias_i8, scales, full_mask
+        return relbias.encoder_position_bias_chunked(
+            *tables, full_bbox, full_mask, seq_len, *geometry,
+            positions=positions)
 
     # -- training: teacher-forced forward -------------------------------------
 
@@ -325,10 +420,14 @@ class MarkushGrapherModel(nn.Module):
 
     @torch.no_grad()
     def init_cache(self, enc: torch.Tensor, max_len: int,
+                   quant_cross: bool = False,
                    self_rows: Optional[int] = None):
-        """Per-layer caches: cross slabs of enc's [B] rows, self rings of
-        `self_rows` rows (B * beams under beam search; default B)."""
-        return self.decoder.init_cache(enc, max_len, self.int4_cross,
+        """Per-layer caches: cross K/V of enc's rows, self caches of
+        `self_rows` rows (B * beams under beam search with quantised slabs;
+        default enc's rows). Float caches in enc's dtype, or with
+        quant_cross the quantised scheme of `int4_cross`."""
+        return self.decoder.init_cache(enc, max_len, quant_cross,
+                                       self.int4_cross,
                                        self_rows or enc.shape[0])
 
     @torch.no_grad()
@@ -354,14 +453,19 @@ class MarkushGrapherModel(nn.Module):
     @torch.no_grad()
     def decode_step(self, token_ids: torch.Tensor, caches, step: int,
                     bias_full: torch.Tensor, cross_bias: torch.Tensor,
-                    qw: Dict) -> torch.Tensor:
-        """token_ids [rows, 1]; cross_bias [B, 1, Kp] f32 over the cross
-        slabs' rows (padding keys at -1e9). Returns float32 logits
+                    qw: Optional[Dict] = None) -> torch.Tensor:
+        """token_ids [rows, 1]; cross_bias [B, 1, K] f32 over the cross
+        caches' rows (masked keys, and a quantised slab's padding, very
+        negative); qw: `quantize_weights()` or None. Returns float32 logits
         [rows, 1, V]."""
         x = self.embed_tokens(token_ids)
         x = self.decoder.decode_step(x, caches, step, bias_full[:, :, step],
-                                     cross_bias, qw["layers"],
+                                     cross_bias,
+                                     None if qw is None else qw["layers"],
                                      self.use_kernels)
+        if qw is None:
+            return F.linear(x.to(torch.float32),
+                            self.lm_head.weight.to(torch.float32))
         # bf16 operands, float32 accumulation, as the reference's int8 head
         logits = F.linear(x.to(torch.bfloat16).to(torch.float32),
                           qw["lm_head"]["q"].to(torch.float32))

@@ -8,25 +8,31 @@ the flax tree (`layer_{i}`, `ln_attn`, `attn.{q,k,v,o}`, ...) so
 `convert.from_jax` maps one onto the other; weights use torch's Linear
 layout [out, in].
 
-The decode step serves quantised KV caches with int8 weights, under one of
-two KV schemes (the reference's `int4_cross` flag):
-  - int8 (the reference's default quantised KV): cross K/V slabs
-    [B, Kp, H*D] int8 with f32 scales [B, H, Kp]; self rings of the same
-    layout [rows, S, H*D] / [rows, H, S]; every decode attention through
+The decode step serves the reference's KV schemes (`init_cache`):
+  - float (quant_cross off): cross K/V [B, K, H, D] and self caches
+    [rows, S, H, D] in the model's dtype; attention is float32 scores and
+    softmax with the probabilities in the cache dtype for the PV product,
+    the reference's einsums (`dense_attention`, plain matmuls);
+  - int8 (quant_cross, the reference's default quantised KV): cross K/V
+    slabs [B, Kp, H*D] int8 with f32 scales [B, H, Kp]; self rings of the
+    same layout [rows, S, H*D] / [rows, H, S]; every decode attention through
     `ops.mxu_decode.cross_decode_mxu`;
-  - int4: the same slabs and rings nibble-packed (`pack_int4` column split,
-    [.., H*D/2]) with bf16 scales; every decode attention through
-    `ops.mxu_decode.cross_decode_mxu_int4`. The rings are separate K and V
-    tensors (the reference's greedy path keeps one combined k||v ring, a
-    TPU layout choice; the math is the same).
-Both quantise per (token, head); the cross key axis is padded to a
-256-multiple (zero scales, masked by the -1e9 cross bias). The self rings
-are written in place at each step. Cross slabs keep one row per sample
-while the self rings carry `self_rows` rows (batch * beams under beam
-search): the beam cross folds the beams into the kernel's query rows with a
-`head_map`, so every beam of a sample reads its shared slab in one pass.
-Every decode-step matmul runs against int8 weights dequantised to the
-compute dtype, scaled per output channel afterwards.
+  - int4 (quant_cross and the model's `int4_cross`): the same slabs and rings
+    nibble-packed (`pack_int4` column split, [.., H*D/2]) with bf16 scales;
+    every decode attention through `ops.mxu_decode.cross_decode_mxu_int4`.
+    The rings are separate K and V tensors (the reference's greedy path
+    keeps one combined k||v ring, a TPU layout choice; the math is the
+    same).
+The quantised schemes quantise per (token, head); the cross key axis is
+padded to a 256-multiple (zero scales, masked by the -1e9 cross bias). The
+self caches are written in place at each step. Quantised cross slabs keep
+one row per sample while the self rings carry `self_rows` rows (batch *
+beams under beam search): the beam cross folds the beams into the kernel's
+query rows with a `head_map`, so every beam of a sample reads its shared
+slab in one pass. Float caches are tiled per beam, as the reference's. The
+decode-step matmuls run against the modules' weights, or (quant_weights)
+against int8 weights dequantised to the compute dtype and scaled per output
+channel afterwards.
 
 Training (`train_forward`, grad-enabled): dropout at the reference's sites
 (after the feed-forward activation, on each sub-layer output before its
@@ -49,7 +55,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from markushgrapher_torch.ops import flash_attention, mxu_decode
+from markushgrapher_torch.ops import (flash_attention, flash_relbias,
+                                      mxu_decode)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -119,16 +126,32 @@ class Attention(nn.Module):
     def split(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.num_heads, self.d_kv)
 
-    def forward(self, x: torch.Tensor,
-                bias: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    def forward(self, x: torch.Tensor, bias,
                 use_kernels: bool = True) -> torch.Tensor:
-        """x [B, L, D]; bias is (bias_i8 [B, H, L, L], scales [H],
-        key_mask [B, L]) for the int8-slab flash attention."""
+        """Serving self-attention of x [B, L, D] under one of the three bias
+        forms the reference's `Attention.__call__` routes to a flash kernel:
+          - a tuple (bias_i8 [B, H, L, L], scales [H], key_mask [B, L]): the
+            int8 slab, `flash_attention.flash_attention_bias_i8`;
+          - a float tensor [B or 1, H, L, L] (additive, key mask in it): the
+            float slab, `flash_attention.flash_attention_bias`;
+          - a dict of `flash_relbias.flash_attention_relbias` keyword
+            arguments (hx, vy, mask, the three tables, the distances): the
+            bias computed inside the kernel.
+        use_kernels=False takes each kernel's plain version."""
         q, k, v = self.split(self.q(x)), self.split(self.k(x)), \
             self.split(self.v(x))
-        fn = (flash_attention.flash_attention_bias_i8 if use_kernels
-              else flash_attention.plain)
-        out = fn(q, k, v, *bias)
+        if isinstance(bias, dict):
+            fn = (flash_relbias.flash_attention_relbias if use_kernels
+                  else flash_relbias.plain)
+            out = fn(q, k, v, **bias)
+        elif isinstance(bias, tuple):
+            fn = (flash_attention.flash_attention_bias_i8 if use_kernels
+                  else flash_attention.plain)
+            out = fn(q, k, v, *bias)
+        else:
+            fn = (flash_attention.flash_attention_bias if use_kernels
+                  else flash_attention.plain_bias)
+            out = fn(q, k, v, bias)
         return self.o(out.reshape(*out.shape[:2], -1))
 
     def attend(self, x: torch.Tensor, bias: Optional[torch.Tensor],
@@ -310,14 +333,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def reorder_self_rings(caches: List[Cache], parent: torch.Tensor,
                        live: int) -> None:
-    """Beam reorder of every layer's self rings, in place: ring row i takes
-    row parent[i]'s live prefix [0, live). Positions past it are still the
+    """Beam reorder of every layer's self caches, in place: row i takes row
+    parent[i]'s live prefix [0, live). Positions past it are still the
     unwritten zeros in every row, so reordering them would change nothing
-    (the reference's whole-ring copy-on-write with one segment)."""
+    (the reference's whole-ring copy-on-write with one segment, and its
+    whole-cache gather of float caches)."""
     for cache in caches:
         for name, ring in cache.items():
             if name.startswith("self_"):
-                # values [rows, S, width], scales [rows, H, S]
+                # values [rows, S, width] or [rows, S, H, D], scales
+                # [rows, H, S]
                 prefix = ring.narrow(2 if name.endswith("_s") else 1, 0, live)
                 prefix.copy_(prefix.index_select(0, parent))
 
@@ -345,14 +370,23 @@ class DecoderLayer(nn.Module):
         h = self.ff(self.ln_ff(x), rate, gen)
         return x + dropout(h, rate, gen)
 
-    def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
-                   rows: int) -> Cache:
-        """Quantise the cross K/V once ([B] rows); allocate empty self rings
-        of `rows` rows."""
+    def init_cache(self, enc: torch.Tensor, max_len: int, quant_cross: bool,
+                   int4_cross: bool, rows: int) -> Cache:
+        """Project the cross K/V once over enc's rows; allocate empty self
+        caches of `rows` rows. Without quant_cross: float cross_k / cross_v
+        [B, K, H, D] and self_k / self_v [rows, max_len, H, D] in enc's
+        dtype. With it: quantised slabs ([B] rows) and rings, int4 or int8
+        by `int4_cross`."""
         batch, kv_len, _ = enc.shape
         heads = self.num_heads
-        hd = heads * self.d_kv
         dev = enc.device
+        if not quant_cross:
+            zeros = torch.zeros((rows, max_len, heads, self.d_kv),
+                                dtype=enc.dtype, device=dev)
+            return {"cross_k": self.cross_attn.split(self.cross_attn.k(enc)),
+                    "cross_v": self.cross_attn.split(self.cross_attn.v(enc)),
+                    "self_k": zeros, "self_v": zeros.clone()}
+        hd = heads * self.d_kv
         width, sdt, quant = ((hd // 2, torch.bfloat16, quantize_kv4)
                              if int4_cross else
                              (hd, torch.float32, quantize_kv))
@@ -390,6 +424,8 @@ class DecoderLayer(nn.Module):
         return qw
 
     def _ff_decode(self, h: torch.Tensor, qw) -> torch.Tensor:
+        if qw is None:
+            return self.ff(h)
         if self.ff_proj == "gated-gelu":
             a = F.gelu(qlinear(h, qw["wi_0_q"], qw["wi_0_s"]),
                        approximate="tanh")
@@ -397,6 +433,15 @@ class DecoderLayer(nn.Module):
         else:
             mid = F.relu(qlinear(h, qw["wi_q"], qw["wi_s"]))
         return qlinear(mid, qw["wo_q"], qw["wo_s"])
+
+    @staticmethod
+    def _proj(attn: "Attention", name: str, h: torch.Tensor, qw,
+              key: str) -> torch.Tensor:
+        """Projection `name` of `attn` on h: the module's weight, or the int8
+        weight qw[key] when the decode weights are quantised."""
+        if qw is None:
+            return getattr(attn, name)(h)
+        return qlinear(h, qw[key + "_q"], qw[key + "_s"])
 
     def _write_ring(self, cache: Cache, step: int, k_new: torch.Tensor,
                     v_new: torch.Tensor) -> None:
@@ -424,38 +469,55 @@ class DecoderLayer(nn.Module):
 
     def decode_step(self, x: torch.Tensor, cache: Cache, step: int,
                     self_bias_row: torch.Tensor, cross_bias: torch.Tensor,
-                    qw: Dict[str, torch.Tensor],
+                    qw: Optional[Dict[str, torch.Tensor]],
                     use_kernels: bool = True) -> torch.Tensor:
         """x [rows, 1, D]; self_bias_row [1, H, S] f32 (causal row);
-        cross_bias [B, 1, Kp] f32 over the [B]-row cross slabs, where
-        rows = B * beams. Writes this step's K/V into the rings in place."""
-        attend, suffix = self._attend_fn(cache, use_kernels)
+        cross_bias [B, 1, K] f32 over the cross caches' rows (rows = B *
+        beams for quantised slabs, which beams share; B = rows for float
+        caches, tiled per beam). qw: int8 decode weights, or None for the
+        module's own. Writes this step's K/V into the self caches in
+        place."""
         rows = x.shape[0]
         heads, dk = self.num_heads, self.d_kv
         hd = heads * dk
+        sa, ca = self.self_attn, self.cross_attn
         h = self.ln_self(x)
-        qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])            # [rows,1,3HD]
-        q, k_new, v_new = (self.self_attn.split(t)
-                           for t in qkv.split(hd, dim=-1))
-        self._write_ring(cache, step, k_new, v_new)
-        out = attend(q[:, 0], cache["self_k" + suffix], cache["self_k_s"],
-                     cache["self_v" + suffix], cache["self_v_s"],
-                     self_bias_row)
-        x = x + qlinear(out.reshape(rows, 1, hd), qw["self_o_q"],
-                        qw["self_o_s"])
-        h = self.ln_cross(x)
-        q = qlinear(h, qw["cross_q_q"], qw["cross_q_s"])       # [rows,1,HD]
-        slab_rows = cache["cross_k" + suffix].shape[0]
-        beams = rows // slab_rows
-        # beams fold into the query rows: row (beam, head) reads the shared
-        # slab's column block `head`
-        head_map = None if beams == 1 else tuple(range(heads)) * beams
-        out = attend(q.reshape(slab_rows, beams * heads, dk),
-                     cache["cross_k" + suffix], cache["cross_k_s"],
-                     cache["cross_v" + suffix], cache["cross_v_s"],
-                     cross_bias, head_map=head_map)
-        x = x + qlinear(out.reshape(rows, 1, hd), qw["cross_o_q"],
-                        qw["cross_o_s"])
+        if qw is None:
+            q, k_new, v_new = (sa.split(lin(h)) for lin in (sa.q, sa.k, sa.v))
+        else:
+            qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])        # [rows,1,3HD]
+            q, k_new, v_new = (sa.split(t) for t in qkv.split(hd, dim=-1))
+        if "self_k" in cache:
+            # float caches: float32 scores, softmax, probabilities in the
+            # cache dtype for the PV product (the reference's einsums)
+            cache["self_k"][:, step] = k_new[:, 0]
+            cache["self_v"][:, step] = v_new[:, 0]
+            out = dense_attention(q, cache["self_k"], cache["self_v"],
+                                  self_bias_row[:, :, None, :])
+        else:
+            attend, suffix = self._attend_fn(cache, use_kernels)
+            self._write_ring(cache, step, k_new, v_new)
+            out = attend(q[:, 0], cache["self_k" + suffix],
+                         cache["self_k_s"], cache["self_v" + suffix],
+                         cache["self_v_s"], self_bias_row)
+        x = x + self._proj(sa, "o", out.reshape(rows, 1, hd), qw, "self_o")
+        q = self._proj(ca, "q", self.ln_cross(x), qw,
+                       "cross_q")                             # [rows,1,HD]
+        if "cross_k" in cache:
+            out = dense_attention(ca.split(q), cache["cross_k"],
+                                  cache["cross_v"], cross_bias[:, :, None, :])
+        else:
+            attend, suffix = self._attend_fn(cache, use_kernels)
+            slab_rows = cache["cross_k" + suffix].shape[0]
+            beams = rows // slab_rows
+            # beams fold into the query rows: row (beam, head) reads the
+            # shared slab's column block `head`
+            head_map = None if beams == 1 else tuple(range(heads)) * beams
+            out = attend(q.reshape(slab_rows, beams * heads, dk),
+                         cache["cross_k" + suffix], cache["cross_k_s"],
+                         cache["cross_v" + suffix], cache["cross_v_s"],
+                         cross_bias, head_map=head_map)
+        x = x + self._proj(ca, "o", out.reshape(rows, 1, hd), qw, "cross_o")
         return x + self._ff_decode(self.ln_ff(x), qw)
 
 
@@ -487,9 +549,9 @@ class Decoder(nn.Module):
         return dropout(x, rate, layer_generator(draw_seed(generator),
                                                 x.device))
 
-    def init_cache(self, enc: torch.Tensor, max_len: int, int4_cross: bool,
-                   rows: int) -> List[Cache]:
-        return [layer.init_cache(enc, max_len, int4_cross, rows)
+    def init_cache(self, enc: torch.Tensor, max_len: int, quant_cross: bool,
+                   int4_cross: bool, rows: int) -> List[Cache]:
+        return [layer.init_cache(enc, max_len, quant_cross, int4_cross, rows)
                 for layer in self.layers()]
 
     def quantize_weights(self):
@@ -497,7 +559,9 @@ class Decoder(nn.Module):
 
     def decode_step(self, x, caches, step, self_bias_row, cross_bias, qw,
                     use_kernels: bool = True) -> torch.Tensor:
-        for layer, cache, lqw in zip(self.layers(), caches, qw):
+        """qw: the per-layer int8 weights, or None for the modules' own."""
+        for layer, cache, lqw in zip(self.layers(), caches,
+                                     qw or [None] * self.num_layers):
             x = layer.decode_step(x, cache, step, self_bias_row, cross_bias,
                                   lqw, use_kernels)
         return self.final_ln(x)

@@ -2,7 +2,8 @@
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
 (the two decode kernels and the OCR megastep share `decode_common.cuh`, the
-float-bias flash forward and backward `flash_bias.cuh`). At first use they are
+float-bias flash forward and backward and the in-kernel-bias flash forward
+`flash_bias.cuh`). At first use they are
 compiled with nvcc for Hopper (`sm_90a`), one nvcc
 process per source, all started together, and linked into one shared
 library under `markushgrapher_torch/_build/` (named by a hash of the sources
@@ -32,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
            "decode_i8.cu", "ocr_megastep.cu", "flash_bias.cu",
-           "flash_bias_bwd.cu")
+           "flash_bias_bwd.cu", "flash_relbias.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf. The
 # megastep's grid.sync() needs no -rdc (CUDA 11 and later).
@@ -42,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
                             "decode_int4": 0, "decode_i8": 0,
                             "ocr_megastep": 0, "flash_bias": 0,
-                            "flash_bias_dkv": 0, "flash_bias_dq": 0}
+                            "flash_bias_dkv": 0, "flash_bias_dq": 0,
+                            "flash_relbias": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -67,6 +69,9 @@ _SIGNATURES = {
     + [_P] * 3,
     "mg_flash_bias_dq": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4
     + [_P] * 3,
+    # q, k, v, hx, vy, mask, tables, lut1, lut2, B, L, H, D, nb, max1, max2,
+    # scaling, out, stream
+    "mg_flash_relbias": [_P] * 9 + [_I] * 7 + [_F, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -42,9 +42,6 @@ def encoder_position_bias_kernel_i8(
         return plain(bias_1d_table, bias_h_table, bias_v_table, bbox,
                      attention_mask, seq_len, num_buckets, max_distance_1d,
                      rel2d_scaling, max_distance_2d, positions=positions)
-    if num_buckets ** 3 > 65536:
-        raise ValueError("int8 bias needs the combined-table scale "
-                         f"(num_buckets^3 <= 65536, got {num_buckets})")
     dev = bbox.device
     batch, length = bbox.shape[0], bbox.shape[1]
     if length != seq_len:

@@ -4,7 +4,8 @@ Each OCR token's bbox centre selects the vision patch it lies in; that patch
 embedding is added to the token embedding (zeroed for pad / full-page boxes).
 Patches claimed by no token are appended in patch-index order through a
 stable argsort of the claimed mask, so the output keeps one fixed
-[B, T + P, D] shape.
+[B, T + P, D] shape. `pack_valid_first` moves a fused row's valid positions
+to a contiguous prefix (the packed encoder and the packed cross caches).
 """
 
 from __future__ import annotations
@@ -72,3 +73,19 @@ def combine_image_text_embeddings(
     return (torch.cat([text_embeds, patch_embeds], dim=1),
             torch.cat([bbox, patch_bbox], dim=1),
             torch.cat([attention_mask, patch_mask], dim=1))
+
+
+def pack_valid_first(mask: torch.Tensor, length: int, *tensors: torch.Tensor):
+    """Each row's valid positions (mask > 0) moved to a contiguous prefix,
+    stably (their order is kept), and cut to `length`, which must bound
+    every row's valid count. Returns (order [B, length], the packed mask,
+    *the tensors [B, L, ...] packed alike); order holds each packed
+    position's original index."""
+    order = torch.argsort((mask <= 0).to(torch.int32), dim=1,
+                          stable=True)[:, :length]
+
+    def take(t):
+        idx = order.reshape(order.shape + (1,) * (t.dim() - 2))
+        return torch.gather(t, 1, idx.expand(order.shape + t.shape[2:]))
+
+    return (order, take(mask), *(take(t) for t in tensors))

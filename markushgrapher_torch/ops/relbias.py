@@ -2,12 +2,13 @@
 layout biases (port of `markushgrapher_tpu.ops.relbias`).
 
 Bucket math runs in float32 in the JAX op order, and `(delta * 100)` is
-truncated toward zero, so bucket ids are identical to the reference. The int8
-slab builder (`encoder_position_bias_chunked_i8`) maps distances to buckets
-through small lookup tables built by `relative_position_bucket` itself: the
-table spans +-max_distance and buckets saturate beyond it, so clamping a
-distance into the table is exact, and the CUDA builder (ops.bias_build) reads
-the same tables.
+truncated toward zero, so bucket ids are identical to the reference. The
+serving slab builders (`encoder_position_bias_chunked_i8`, int8, and
+`encoder_position_bias_chunked`, bf16 with the key mask in it) map distances
+to buckets through small lookup tables built by `relative_position_bucket`
+itself: the table spans +-max_distance and buckets saturate beyond it, so
+clamping a distance into the table is exact, and the CUDA kernels
+(ops.bias_build, ops.flash_relbias) read the same tables.
 """
 
 from __future__ import annotations
@@ -82,15 +83,28 @@ def encoder_position_bias(bias_1d_table, bias_h_table, bias_v_table,
                           ) -> torch.Tensor:
     """Aggregated encoder bias [B or 1, H, L, L] = 1d + horizontal + vertical.
     positions: per-row original indices [B, L] for packed encoders."""
+    hx, vy = bbox_centres(bbox)
+    return centre_position_bias(bias_1d_table, bias_h_table, bias_v_table,
+                                hx, vy, seq_len, num_buckets,
+                                max_distance_1d, rel2d_scaling,
+                                max_distance_2d, positions)
+
+
+def centre_position_bias(bias_1d_table, bias_h_table, bias_v_table,
+                         hx: torch.Tensor, vy: torch.Tensor, seq_len: int,
+                         num_buckets: int, max_distance_1d: int,
+                         rel2d_scaling: int, max_distance_2d: int,
+                         positions: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """`encoder_position_bias` from the float32 bbox centres [B, L]."""
     if positions is None:
         b1 = bucket_1d(seq_len, bidirectional=True, num_buckets=num_buckets,
-                       max_distance=max_distance_1d, device=bbox.device)
+                       max_distance=max_distance_1d, device=hx.device)
         out = gather_bias(bias_1d_table, b1)[None]
     else:
         rel = positions[:, None, :] - positions[:, :, None]
         b1 = relative_position_bucket(rel, True, num_buckets, max_distance_1d)
         out = gather_bias(bias_1d_table, b1)
-    hx, vy = bbox_centres(bbox)
     bh = bucket_2d(hx, scaling_factor=rel2d_scaling, num_buckets=num_buckets,
                    max_distance=max_distance_2d)
     bv = bucket_2d(vy, scaling_factor=rel2d_scaling, num_buckets=num_buckets,
@@ -113,9 +127,46 @@ def combined_table(t1: torch.Tensor, th: torch.Tensor, tv: torch.Tensor,
     """tc[h, b1 + nb*bh + nb^2*bv] = (t1 + th) + tv, from [nb, H] tables,
     in float32 (the reference's `_combined_table` add order)."""
     nb = num_buckets
+    if nb ** 3 > 65536:
+        raise ValueError("the serving slabs need the combined table "
+                         f"(num_buckets^3 <= 65536, got {nb})")
     ci = torch.arange(nb ** 3, device=t1.device)
     t1T, thT, tvT = (t.to(torch.float32).T for t in (t1, th, tv))
     return t1T[:, ci % nb] + thT[:, (ci // nb) % nb] + tvT[:, ci // (nb * nb)]
+
+
+class CombinedIndex:
+    """Index b1 + nb*bh + nb^2*bv into `combined_table` of query rows
+    [q0, q1) against every key: [1 or B, q1 - q0, L] int64. Buckets come
+    from the `bucket_lut` tables (distances clamped into them, which is
+    exact); the 2d distance is int((c_k - c_q) * rel2d_scaling) in float32,
+    truncated toward zero, as in `bucket_2d`. positions: per-row original
+    indices [B, L] for packed encoders."""
+
+    def __init__(self, bbox: torch.Tensor, seq_len: int, num_buckets: int,
+                 max_distance_1d: int, rel2d_scaling: int,
+                 max_distance_2d: int,
+                 positions: Optional[torch.Tensor] = None):
+        dev = bbox.device
+        self.nb, self.scaling = num_buckets, rel2d_scaling
+        self.md1, self.md2 = max_distance_1d, max_distance_2d
+        self.lut1 = bucket_lut(num_buckets, max_distance_1d, dev).long()
+        self.lut2 = bucket_lut(num_buckets, max_distance_2d, dev).long()
+        self.pos = (torch.arange(seq_len, device=dev)[None]
+                    if positions is None else positions.long())  # [1|B, L]
+        self.hx, self.vy = bbox_centres(bbox)
+
+    def _b2(self, c: torch.Tensor, q0: int, q1: int) -> torch.Tensor:
+        rel = ((c[:, None, :] - c[:, q0:q1, None]) * self.scaling).to(
+            torch.int32).clamp(-self.md2, self.md2)
+        return self.lut2[rel.long() + self.md2]
+
+    def __call__(self, q0: int, q1: int) -> torch.Tensor:
+        rel1 = self.pos[:, None, :] - self.pos[:, q0:q1, None]
+        b1 = self.lut1[rel1.clamp(-self.md1, self.md1) + self.md1]
+        nb = self.nb
+        return (b1 + nb * self._b2(self.hx, q0, q1)
+                + nb * nb * self._b2(self.vy, q0, q1))
 
 
 def bias_scales(tc: torch.Tensor) -> torch.Tensor:
@@ -136,35 +187,48 @@ def encoder_position_bias_chunked_i8(
     (the flash kernel applies it from `attention_mask`, which is unused
     here)."""
     del attention_mask
-    if num_buckets ** 3 > 65536:
-        raise ValueError("int8 bias needs the combined table "
-                         f"(num_buckets^3 <= 65536, got {num_buckets})")
-    dev = bbox.device
     tc = combined_table(bias_1d_table, bias_h_table, bias_v_table,
                         num_buckets)
     scales = bias_scales(tc)
     tc_i8 = torch.round(tc / scales[:, None]).to(torch.int8)     # [H, nb^3]
-
-    lut1 = bucket_lut(num_buckets, max_distance_1d, dev).long()
-    lut2 = bucket_lut(num_buckets, max_distance_2d, dev).long()
-    if positions is None:
-        pos = torch.arange(seq_len, device=dev)
-        rel1 = (pos[None, :] - pos[:, None])[None]                # [1, L, L]
-    else:
-        pos = positions.long()
-        rel1 = pos[:, None, :] - pos[:, :, None]                  # [B, L, L]
-    b1 = lut1[rel1.clamp(-max_distance_1d, max_distance_1d)
-              + max_distance_1d]
-    hx, vy = bbox_centres(bbox)
-
-    def b2(c):
-        rel = ((c[:, None, :] - c[:, :, None]) * rel2d_scaling).to(
-            torch.int32).clamp(-max_distance_2d, max_distance_2d)
-        return lut2[rel.long() + max_distance_2d]
-
-    c = b1 + num_buckets * b2(hx) + num_buckets * num_buckets * b2(vy)
-    out = tc_i8[:, c]                                             # [H,B,L,L]
+    index = CombinedIndex(bbox, seq_len, num_buckets, max_distance_1d,
+                          rel2d_scaling, max_distance_2d, positions)
+    out = tc_i8[:, index(0, seq_len)]                             # [H,B,L,L]
     return out.permute(1, 0, 2, 3).contiguous(), scales
+
+
+def encoder_position_bias_chunked(
+        bias_1d_table, bias_h_table, bias_v_table, bbox: torch.Tensor,
+        attention_mask: torch.Tensor, seq_len: int, num_buckets: int,
+        max_distance_1d: int, rel2d_scaling: int, max_distance_2d: int,
+        chunk: int = 0, out_dtype=torch.bfloat16, mask_value: float = -1e9,
+        positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The float serving slab [B, H, L, L] in `out_dtype` (the reference's
+    `relbias.encoder_position_bias_chunked`, read by every layer's
+    `flash_attention.flash_attention_bias`): ((t1[b1] + th[bh]) + tv[bv])
+    in float32, `mask_value` on keys where `attention_mask` is 0, then cast.
+    positions: per-row original indices [B, L] for packed encoders.
+
+    Built one query chunk at a time (chunk=0: 256 rows up to batch 16, 64
+    above, as the reference sizes it), so the transients stay ~chunk * L per
+    row, and written straight into the [B, H, L, L] layout the flash kernel
+    streams. Buckets index the combined table, as in
+    `encoder_position_bias_chunked_i8`."""
+    batch, heads = bbox.shape[0], bias_1d_table.shape[-1]
+    if chunk <= 0:
+        chunk = 256 if batch <= 16 else 64
+    tc = combined_table(bias_1d_table, bias_h_table, bias_v_table,
+                        num_buckets)                              # [H, nb^3]
+    index = CombinedIndex(bbox, seq_len, num_buckets, max_distance_1d,
+                          rel2d_scaling, max_distance_2d, positions)
+    keep = (attention_mask > 0)[None, :, None, :]                 # [1,B,1,L]
+    out = torch.empty((batch, heads, seq_len, seq_len), dtype=out_dtype,
+                      device=bbox.device)
+    for q0 in range(0, seq_len, chunk):
+        q1 = min(q0 + chunk, seq_len)
+        full = torch.where(keep, tc[:, index(q0, q1)], mask_value)
+        out[:, :, q0:q1] = full.transpose(0, 1).to(out_dtype)    # [B,H,c,L]
+    return out
 
 
 def decoder_position_bias(bias_table: torch.Tensor, seq_len: int,

@@ -5,8 +5,11 @@
 
 MarkushGrapher (`--stage mg`): the flagship `MarkushGrapherConfig()` with
 seeded random bf16 weights on seeded synthetic pages (as `chip_smoke.py`
-does); for each serving path (greedy or beam-5, int4 or int8 KV) at the
-batch sizes below, 512 steps' worth of rings with eos never firing.
+does); one encode along each encoder route (int8 slab, bf16 slab, in-kernel
+bias, packed) and, for each decode path (greedy or beam-5 under int4 or int8
+KV with int8 weights, and `configs/predict.yaml`'s beam-5 over bf16 KV and
+bf16 weights) at the batch sizes below, 512 steps' worth of caches with eos
+never firing.
 ChemicalOCR (`--stage ocr`): `OCRConfig()` with seeded random bf16 weights
 on seeded uint8 pages at batch 8, through `ChemicalOCR.generate_batch`
 with 512 new tokens, along its three paths (int4 KV, int8 KV, megastep).
@@ -36,9 +39,12 @@ from typing import Dict, List, Tuple
 SEED = 0
 SKIP, STEPS = 32, 16
 TOP = 12            # kernels by name kept per window in the JSON
-# (label, int4 KV, beams, batch sizes)
-PATHS = (("greedy int4", True, 1, (8, 48)), ("greedy int8", False, 1, (8, 48)),
-         ("beam-5 int4", True, 5, (8, 16)), ("beam-5 int8", False, 5, (8, 16)))
+# (label, KV scheme, beams, batch sizes); "bf16": float caches and weights
+PATHS = (("greedy int4", "int4", 1, (8, 48)),
+         ("greedy int8", "int8", 1, (8, 48)),
+         ("beam-5 int4", "int4", 5, (8, 16)),
+         ("beam-5 int8", "int8", 5, (8, 16)),
+         ("beam-5 bf16 (predict.yaml)", "bf16", 5, (8,)))
 # (label, ChemicalOCR engine flags) at batch OCR_BATCH
 OCR_BATCH = 8
 OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
@@ -52,6 +58,7 @@ KINDS = (("ocr_megastep", ("ocr_megastep",)),
          ("decode attention", ("decode_i8_kernel", "decode_int4_kernel")),
          ("flash_i8", ("flash_i8",)), ("bias_build_i8", ("bias_build",)),
          ("flash_bias", ("flash_bias_fwd",)),
+         ("flash_relbias", ("flash_relbias",)),
          ("flash_bias backward", ("flash_bias_dkv", "flash_bias_dq")),
          ("optimizer (foreach)", ("multi_tensor",)),
          ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")),
@@ -149,20 +156,23 @@ def step_window(model, attr: str, run, traced) -> Tuple[float, object]:
     return state["wall"], prof
 
 
-def decode_window(model, enc, mask, pack, beams, traced) -> Tuple[float, object]:
-    """The MarkushGrapher decode loop (greedy or beam search)."""
+def decode_window(model, enc, mask, pack, beams, traced,
+                  quant: bool = True) -> Tuple[float, object]:
+    """The MarkushGrapher decode loop (greedy or beam search), over the
+    model's quantised KV and int8 weights, or (quant=False) float caches and
+    weights."""
     from markushgrapher_torch.decode.generate import (beam_generate,
                                                       greedy_generate)
 
     steps = model.cfg.max_seq_length_decoder
+    kw = dict(eos_id=-1, cross_pack_len=pack, quant_cross_kv=quant,
+              quant_weights=quant)
     if beams == 1:
         def run():
-            greedy_generate(model, enc, mask, steps, eos_id=-1,
-                            cross_pack_len=pack)
+            greedy_generate(model, enc, mask, steps, **kw)
     else:
         def run():
-            beam_generate(model, enc, mask, steps, beams, eos_id=-1,
-                          cross_pack_len=pack)
+            beam_generate(model, enc, mask, steps, beams, **kw)
     return step_window(model, "decode_step", run, traced)
 
 
@@ -239,7 +249,7 @@ def trace_mg(dev, mt, record) -> None:
     from markushgrapher_torch.data.synthetic import page_batch
     from markushgrapher_torch.eval_pipeline import MODEL_INPUTS
     from markushgrapher_torch.models.markushgrapher import (
-        MarkushGrapherModel, encoder_valid_max)
+        ROUTES, MarkushGrapherModel, encoder_valid_max, route_flags)
 
     cfg = MarkushGrapherConfig()
     with torch.device(dev):
@@ -252,20 +262,28 @@ def trace_mg(dev, mt, record) -> None:
         mv = encoder_valid_max(cfg, args[1], args[2])
         pack = -(-mv // 256) * 256
 
-        def encode(args=args):
-            model.encode(*args)
+        for route in ROUTES:
+            routed = model.clone(**route_flags(cfg, route, *args[1:3]))
 
-        encode_window(encode, False)                          # warm
-        wall, _ = encode_window(encode, False)
-        record(f"encode b{b}", wall, encode_window(encode, True), 1)
-        enc, mask = model.encode(*args)
-        for label, int4, beams, sizes in PATHS:
+            def encode(routed=routed, args=args):
+                routed.encode(*args)
+
+            encode_window(encode, False)                      # warm
+            wall, _ = encode_window(encode, False)
+            record(f"encode {route} b{b}", wall, encode_window(encode, True),
+                   1)
+        enc, mask = model.clone(bias_int8=True).encode(*args)
+        for label, kv, beams, sizes in PATHS:
             if b not in sizes:
                 continue
-            model.int4_cross = int4
-            wall, _ = decode_window(model, enc, mask, pack, beams, False)
+            scheme = model.clone(int4_cross=kv == "int4")
+            quant = kv != "bf16"
+            # predict.yaml sets no cross pack
+            xp = pack if quant else None
+            wall, _ = decode_window(scheme, enc, mask, xp, beams, False, quant)
             record(f"{label} b{b} decode steps {SKIP}-{SKIP + STEPS}", wall,
-                   decode_window(model, enc, mask, pack, beams, True), STEPS)
+                   decode_window(scheme, enc, mask, xp, beams, True, quant),
+                   STEPS)
 
 
 def trace_ocr(dev, mt, record) -> None:

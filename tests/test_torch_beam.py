@@ -1,9 +1,11 @@
-"""The port's beam search and int8-KV decode against the JAX package on the
+"""The port's beam search and its KV schemes against the JAX package on the
 CPU at f32, on the tiny config of test_torch_model.py (Pallas in interpret
 mode on the JAX side): beam-5 tokens identical and scores within 1e-4 under
-int4 and int8 KV, over length penalties, an eos that fires mid-decode and
-`early_stopping`;
-int8-KV greedy tokens identical; num_beams=1 equal to greedy."""
+int4 and int8 KV with int8 weights and under float KV with float weights
+(the reference's predict mode; bf16 on the card, float32 here), over length
+penalties, an eos that fires mid-decode and `early_stopping`; greedy tokens
+identical under int8 KV with int8 weights, float KV with float weights, and
+int8 KV with float weights; num_beams=1 equal to greedy."""
 
 import dataclasses
 
@@ -24,7 +26,15 @@ from test_torch_model import jax_encode, tiny_batch, tiny_cfg, torch_encode
 
 MAX_LEN = 16
 BEAMS = 5
-KV = {"int4": True, "int8": False}
+KV = {"int4": True, "int8": False, "float": False}
+QUANT = dict(quant_cross_kv=True, quant_weights=True)
+
+
+def flags(kv):
+    """generate's flags of a KV scheme: quantised KV with int8 weights, or
+    float caches with the model's weights."""
+    quant = kv != "float"
+    return dict(quant_cross_kv=quant, quant_weights=quant)
 
 
 def jax_model(cfg, int4):
@@ -44,7 +54,7 @@ def setup():
     init_batch["labels"] = jnp.zeros((2, MAX_LEN), jnp.int32)
     params = meta.unbox(jax_model(cfg, True).init(jax.random.PRNGKey(0),
                                                   **init_batch))
-    model = tmg.MarkushGrapherModel(cfg)
+    model = tmg.MarkushGrapherModel(cfg, bias_int8=True)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     enc, mask = jax_encode(cfg, params, batch)
     pack = -(-jmg.encoder_valid_max(cfg, jnp.asarray(batch["bbox"]),
@@ -53,19 +63,19 @@ def setup():
     return cfg, batch, params, model, enc, mask, pack
 
 
-def _eos_mid_decode(model, enc, mask, pack):
+def _eos_mid_decode(model, enc, mask, pack, kv):
     """A token the eos-free best hypothesis of row 1 emits at step 5, so
     that as eos it fires mid-decode and finished hypotheses of several
     lengths merge."""
     ids, _ = tgen.beam_generate(model, enc, mask, MAX_LEN, BEAMS, eos_id=-1,
-                                cross_pack_len=pack)
+                                cross_pack_len=pack, **flags(kv))
     return int(ids[1, 5])
 
 
 @pytest.mark.parametrize("length_penalty,eos,early_stopping", [
     (0.5, "mid", False), (1.0, "mid", False), (2.0, "mid", False),
     (1.0, "never", False), (1.0, "mid", True)])
-@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("kv", ["int4", "int8", "float"])
 def test_beam_matches_jax(setup, monkeypatch, kv, length_penalty, eos,
                           early_stopping):
     """Same encoder states into both decoders. The JAX package serves beam
@@ -79,16 +89,15 @@ def test_beam_matches_jax(setup, monkeypatch, kv, length_penalty, eos,
     enc = torch.from_numpy(np.array(enc_j))
     mask = torch.from_numpy(np.array(mask_j))
     eos_id = -1 if eos == "never" else _eos_mid_decode(model, enc, mask,
-                                                       pack)
+                                                       pack, kv)
     ids_j, sc_j = jgen.beam_generate(
         jax_model(cfg, KV[kv]), params, enc_j, mask_j, MAX_LEN, BEAMS,
         eos_id=eos_id, length_penalty=length_penalty,
-        early_stopping=early_stopping, quant_cross_kv=True,
-        quant_weights=True, cross_pack_len=pack)
+        early_stopping=early_stopping, cross_pack_len=pack, **flags(kv))
     ids_t, sc_t = tgen.beam_generate(
         model, enc, mask, MAX_LEN, BEAMS, eos_id=eos_id,
         length_penalty=length_penalty, early_stopping=early_stopping,
-        cross_pack_len=pack)
+        cross_pack_len=pack, **flags(kv))
     np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
     np.testing.assert_allclose(sc_t.numpy(), np.asarray(sc_j), atol=1e-4,
                                rtol=0)
@@ -104,7 +113,25 @@ def test_greedy_int8_tokens_identical(setup):
         quant_cross_kv=True, quant_weights=True, cross_pack_len=pack)
     enc_t, mask_t = torch_encode(model, batch)
     ids_t = tgen.greedy_generate(model, enc_t, mask_t, MAX_LEN, eos_id=1,
-                                 cross_pack_len=pack)
+                                 cross_pack_len=pack, **QUANT)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+
+
+@pytest.mark.parametrize("quant_kv,quant_weights", [
+    (False, False), (True, False)])
+def test_greedy_float_weights_tokens_identical(setup, quant_kv,
+                                               quant_weights):
+    """Greedy ids equal JAX greedy_generate at f32 with the model's own
+    decode weights, over float caches (the reference's default) and over
+    int8 KV, each side on its own encoder states."""
+    cfg, batch, params, model, enc_j, mask_j, pack = setup
+    model.int4_cross = False
+    kw = dict(quant_cross_kv=quant_kv, quant_weights=quant_weights)
+    ids_j = jgen.greedy_generate(jax_model(cfg, False), params, enc_j, mask_j,
+                                 MAX_LEN, eos_id=1, cross_pack_len=pack, **kw)
+    enc_t, mask_t = torch_encode(model, batch)
+    ids_t = tgen.greedy_generate(model, enc_t, mask_t, MAX_LEN, eos_id=1,
+                                 cross_pack_len=pack, **kw)
     np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
 
 
@@ -116,10 +143,11 @@ def test_one_beam_equals_greedy(setup, kv):
     model.int4_cross = KV[kv]
     enc, mask = torch_encode(model, batch)
     greedy = tgen.greedy_generate(model, enc, mask, MAX_LEN, eos_id=-1,
-                                  cross_pack_len=pack)
+                                  cross_pack_len=pack, **QUANT)
     beam, _ = tgen.beam_generate(model, enc, mask, MAX_LEN, 1, eos_id=-1,
-                                 cross_pack_len=pack)
+                                 cross_pack_len=pack, **QUANT)
     assert torch.equal(beam, greedy)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     assert torch.equal(tgen.generate(model, tb, MAX_LEN, num_beams=1,
-                                     eos_id=-1, cross_pack_len=pack), greedy)
+                                     eos_id=-1, cross_pack_len=pack,
+                                     **QUANT), greedy)

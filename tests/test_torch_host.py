@@ -1,7 +1,7 @@
 """The port's own copies of the host modules (tokenizer, CXSMILES parser,
 chemistry scoring, dataset encoding and collator, OCR grammar) give the same
-results as the JAX package's originals on the same synthetic samples and OCR
-strings. Neither side needs
+results as the JAX package's originals on the same synthetic samples, OCR
+strings and valid-count lists. Neither side needs
 rdkit or nltk: where those are installed both copies use them, where not
 both take the same pure-Python fallbacks."""
 
@@ -152,3 +152,28 @@ def test_tracker_copy_matches_jax(tmp_path):
         if name == "jsonl":
             assert (tmp_path / "t" / name / "tracker.jsonl").read_text() == \
                 (tmp_path / "j" / name / "tracker.jsonl").read_text()
+
+
+@pytest.mark.parametrize("n_buckets,round_to,margin,cap", [
+    (2, 256, 64, None), (3, 64, 0, 1280), (4, 32, 16, None)])
+def test_bucketing_copy_matches_jax(n_buckets, round_to, margin, cap):
+    """data/bucketing.py: the same buckets, sample order and per-bucket
+    counts for seeded valid counts, and the same refusals."""
+    from markushgrapher_tpu.data import bucketing as j_b
+    from markushgrapher_torch.data import bucketing as t_b
+
+    counts = np.random.RandomState(n_buckets).randint(200, 1536, size=40)
+    args = (counts, n_buckets, round_to, margin, cap)
+    want, got = j_b.bucket_pack_lengths(*args), t_b.bucket_pack_lengths(*args)
+    assert [ln for ln, _ in got] == [ln for ln, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    order_w, lens_w = j_b.order_and_lengths(*args)
+    order_g, lens_g = t_b.order_and_lengths(*args)
+    np.testing.assert_array_equal(order_g, order_w)
+    assert lens_g == lens_w
+    for bad in (([], 2), (counts, 0)):
+        with pytest.raises(ValueError):
+            j_b.bucket_pack_lengths(*bad)
+        with pytest.raises(ValueError):
+            t_b.bucket_pack_lengths(*bad)

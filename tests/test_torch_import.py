@@ -53,6 +53,8 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.eval_main",
                  "markushgrapher_torch.ops.bias_build",
                  "markushgrapher_torch.ops.flash_attention",
+                 "markushgrapher_torch.ops.flash_relbias",
+                 "markushgrapher_torch.data.bucketing",
                  "markushgrapher_torch.ops.mxu_decode",
                  "markushgrapher_torch.data.markush_tokenizer",
                  "markushgrapher_torch.chem.evaluation",

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from markushgrapher_torch.ops import _build, bias_build, flash_attention
-from markushgrapher_torch.ops import megastep, mxu_decode
+from markushgrapher_torch.ops import flash_relbias, megastep, mxu_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +38,8 @@ def test_main_path_shapes(dev, chip_smoke):
     """Each kernel at the main path's shapes, with chip_smoke's tolerances."""
     res = chip_smoke.check_kernels(dev, pack=1280)
     res.update(chip_smoke.check_ocr_kernels(dev, chip_smoke.ocr_model(dev)))
-    assert set(res) == set(chip_smoke.KERNELS)
+    assert set(res) == set(chip_smoke.KERNELS) - set(chip_smoke.FLASH_BIAS) \
+        - {"flash_relbias"}
 
 
 def test_bias_builder_packed_positions(dev):
@@ -340,3 +341,53 @@ def test_flash_bias_refuses(dev):
     q = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="bias"):
         flash_attention.flash_bias_fwd(q, q, q, bias[:, :1])
+
+
+def test_flash_relbias_main_path_shapes(dev, chip_smoke):
+    """The in-kernel-bias flash forward at B=2 and B=8, MG's encoder shape,
+    with chip_smoke's gate."""
+    assert set(chip_smoke.check_flash_relbias(dev)) == {"flash_relbias"}
+
+
+@pytest.mark.parametrize("length,masked", [(200, 40), (333, 333), (1000, 0)])
+def test_flash_relbias_ragged_and_masked(dev, chip_smoke, length, masked):
+    """Lengths that are no multiple of the 64-row tiles, boxes spread past
+    the 2d buckets' saturation (centres in [-1, 2]), and rows whose keys are
+    all masked (masked == length: a uniform average, as the plain
+    softmax)."""
+    rng = np.random.RandomState(length)
+    B, H, D = 2, 3, 64
+    q, k, v = (torch.tensor(rng.randn(B, length, H, D) * s,
+                            dtype=torch.bfloat16, device=dev)
+               for s in (0.3, 0.3, 1.0))
+    hx, vy = (torch.tensor(rng.rand(B, length) * 3 - 1, dtype=torch.float32,
+                           device=dev) for _ in range(2))
+    mask = torch.ones((B, length), dtype=torch.int32, device=dev)
+    mask[:, length - masked:] = 0
+    tables = [torch.tensor(rng.randn(32, H), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    args = (q, k, v, hx, vy, mask, *tables)
+    got = flash_relbias.flash_attention_relbias(*args)
+    chip_smoke.within("flash_relbias", got, flash_relbias.plain(*args))
+
+
+def test_flash_relbias_refuses_before_launch(dev):
+    _build.reset_launches()
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev)
+    hx = torch.zeros((1, 64), device=dev)
+    mask = torch.ones((1, 64), dtype=torch.int32, device=dev)
+    tab = torch.zeros((32, 2), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_relbias.flash_attention_relbias(q.float(), q, q, hx, hx, mask,
+                                              tab, tab, tab)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash_relbias.flash_attention_relbias(
+            q[..., :32], q[..., :32], q[..., :32], hx, hx, mask, tab, tab,
+            tab)
+    with pytest.raises(ValueError, match="hx"):
+        flash_relbias.flash_attention_relbias(q, q, q, hx[:, :32], hx, mask,
+                                              tab, tab, tab)
+    with pytest.raises(ValueError, match="tables"):
+        flash_relbias.flash_attention_relbias(q, q, q, hx, hx, mask,
+                                              tab[:, :1], tab, tab)
+    assert _build.LAUNCHES["flash_relbias"] == 0

@@ -1,7 +1,8 @@
 """The PyTorch port's model against the JAX reference on the CPU, at a tiny
 config where the JAX flash + int8-bias branch engages (496 text + 16 patch
-positions = 512): Swin output, encoder states, and greedy tokens under the
-serving quantisation (int4 KV, int8 weights, cross packing)."""
+positions = 512), the port's model on its int8 slab route: Swin output,
+encoder states, and greedy tokens under the serving quantisation (int4 KV,
+int8 weights, cross packing)."""
 
 import dataclasses
 
@@ -67,7 +68,7 @@ def torch_pair(variant, seed=0):
     params = meta.unbox(jax_model(cfg).init(jax.random.PRNGKey(seed),
                                             **init_batch))
     tree = jax.tree.map(np.asarray, params)
-    model = tmg.MarkushGrapherModel(cfg)
+    model = tmg.MarkushGrapherModel(cfg, bias_int8=True)
     model.load_state_dict(params_from_jax(tree))
     return cfg, batch, params, model
 
@@ -138,6 +139,7 @@ def test_greedy_tokens_identical(pair, bias_kernel):
         cross_pack_len=pack)
     enc_t, mask_t = torch_encode(model, batch)
     ids_t = tgen.greedy_generate(model, enc_t, mask_t, MAX_LEN, eos_id=1,
+                                 quant_cross_kv=True, quant_weights=True,
                                  cross_pack_len=pack)
     np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
 
@@ -147,9 +149,10 @@ def test_row_budget_zero_emits_only_pad(pair):
     other rows keep their greedy tokens up to their budget."""
     cfg, batch, _, model = pair
     enc, mask = torch_encode(model, batch)
-    full = tgen.greedy_generate(model, enc, mask, MAX_LEN, eos_id=-1)
+    quant = dict(quant_cross_kv=True, quant_weights=True)
+    full = tgen.greedy_generate(model, enc, mask, MAX_LEN, eos_id=-1, **quant)
     capped = tgen.greedy_generate(model, enc, mask, MAX_LEN, eos_id=-1,
-                                  row_budgets=torch.tensor([0, 3]))
+                                  row_budgets=torch.tensor([0, 3]), **quant)
     assert (capped[0] == 0).all()
     assert torch.equal(capped[1, :3], full[1, :3])
     assert (capped[1, 3:] == 0).all()
@@ -194,7 +197,7 @@ def test_ragged_length_encode_goes_through_kernel_wrappers(variant,
     init_batch["labels"] = jnp.zeros((2, MAX_LEN), jnp.int32)
     params = meta.unbox(jax_model(cfg).init(jax.random.PRNGKey(1),
                                             **init_batch))
-    model = tmg.MarkushGrapherModel(cfg)
+    model = tmg.MarkushGrapherModel(cfg, bias_int8=True)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     enc_t, mask_t = torch_encode(model, batch)
     assert calls == {"bias": 1, "flash": cfg.vtl.num_layers}

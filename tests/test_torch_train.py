@@ -538,7 +538,7 @@ def test_overfit_then_greedy_int8_reproduces_samples():
         architecture_variant="none", max_seq_length=96,
         max_seq_length_decoder=64)
     trainer = TTrainer(
-        model=tmg.MarkushGrapherModel(cfg),
+        model=tmg.MarkushGrapherModel(cfg, bias_int8=True),
         cfg=TTrainConfig(learning_rate=5e-3, warmup_steps=20,
                          lr_schedule="linear", max_steps=800,
                          gradient_accumulation_steps=1, max_grad_norm=1.0,
@@ -558,7 +558,8 @@ def test_overfit_then_greedy_int8_reproduces_samples():
     model.int4_cross = False
     inputs = {k: torch.as_tensor(batch[k]) for k in
               ("input_ids", "bbox", "attention_mask", "pixel_values")}
-    out = generate(model, inputs, max_length=64, eos_id=1).numpy()
+    out = generate(model, inputs, max_length=64, eos_id=1,
+                   quant_cross_kv=True, quant_weights=True).numpy()
     exact = 0
     for i, sample in enumerate(samples[:2]):
         text = mt.decode(out[i])
