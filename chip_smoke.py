@@ -26,34 +26,51 @@ prints no result):
    heads) over that ring. The float-bias flash forward at its serving shape
    (B=2) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
-   SDPA with the bias as attn_mask as the library yardstick;
+   SDPA with the bias as attn_mask as the library yardstick. The beam-5
+   self ring (40 rows, ring 512) as copy-on-write segments of 128 with a
+   random row map: decode_int4 / decode_i8 read through the map, up to the
+   valid prefix, and both; lattice_self_int4 at 1 and 4 live segments;
+   normalize_u8 over [8, 512, 512, 3] uint8 pages (VTLConfig().image_size,
+   the OCR page size) into bf16 and float32, and [48, ...] into bf16, bit
+   for bit. No PyTorch call reads row-mapped packed int4 / scaled int8 K/V
+   or normalises uint8 in one call: their library time is none;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
-   never firing, along seven paths (PATHS): over the int8 slab encoder,
-   greedy under int4 KV for 512 steps, beam-5 under int4 KV for 512 steps,
-   greedy under int8 KV for 512 steps, and beam-5 under int8 KV for 128
+   never firing, along eleven paths (PATHS): over the int8 slab encoder,
+   greedy under int4 KV for 512 steps, beam-5 under int4 KV for 128 steps,
+   greedy under int8 KV for 128 steps, and beam-5 under int8 KV for 128
    steps (int8 decode weights); `configs/predict.yaml`'s route, the bf16
    slab encoder (`flash_bias`) and beam-5 over bf16 KV caches with the bf16
-   weights, 128 steps; greedy int4 over the in-kernel bias
-   (`flash_relbias`) and over the packed encoder (pack: the ceil-256 of the
-   batch's VTL valid count), 128 steps each. The packed encoder's states
-   are held to the unpacked ones at the valid positions, both on the plain
-   path in float32. Then OCRConfig() (seeded random bf16
-   weights) through `ChemicalOCR.generate_batch` on seeded uint8 pages at
-   batch 8, 512 new tokens, eos never firing, along three paths: int4 KV,
-   int8 KV, and the megastep (int8 KV, one launch per step). For each: the
-   launch counts of every kernel (every count set to 0 just before the path,
-   read just after), and every kernel call of the encode (MG) and of the
-   first 8 decode steps held to its plain version on the same inputs (the
-   megastep one layer at a time and as a whole step). For the int4 greedy
-   path also the end-to-end difference from the plain path beside a
-   half-ulp-nudge control; for every path a few rows decoded to strings;
+   weights, 128 steps; greedy int4 over the in-kernel bias (`flash_relbias`)
+   and over the packed encoder (pack: the ceil-256 of the batch's VTL valid
+   count), 128 steps each; beam-5 int4 over copy-on-write rings of four
+   128-position segments (`self_seg=128`) and with the lattice
+   (`lattice=True`), 512 steps each; beam-5 int8 over segments of 128, 256
+   steps; greedy int4 under `block_skip`, 512 steps. The packed encoder's
+   states are held to the unpacked ones at the valid positions, both on the
+   plain path in float32. Then OCRConfig() (seeded random bf16 weights)
+   through `ChemicalOCR.generate_batch` on seeded uint8 pages at batch 8,
+   eos never firing, along four paths: int4 KV and int8 KV (256 new
+   tokens), the megastep (int8 KV, one launch per step, 512), and int4 KV
+   under `block_skip` (128). For each: the launch counts of every kernel
+   (every count set to 0 just before the path, read just after), the forms
+   of the decode calls (through a row map, up to a valid prefix, the
+   lattice) that the path's options must show, and every kernel call of
+   the encode (MG) and of the first 8 decode steps held to its plain
+   version on the same inputs (the megastep one layer at a time and as a
+   whole step). For the int4 greedy path also the end-to-end difference
+   from the plain path beside a half-ulp-nudge control; for every path a
+   few rows decoded to strings. Then the OCR pages through
+   `ops.preprocess.preprocess_patchify` into MG's VTL patch vectors (one
+   normalize_u8 launch), held to its reference bit for bit;
 5. timing: encode ms of each encoder route (int8 slab, bf16 slab,
    in-kernel bias, packed) at batch 8 and 48; encode ms, decode ms/step and
-   img/s of int4 greedy at batch 8 and 48, beam-5 (int4) at batch 8 and 16,
-   int8 greedy at batch 8 and 48 (all over the int8 slab), and
-   predict.yaml's beam-5 over the bf16 slab and bf16 KV at batch 8; OCR
-   prefill ms, ms/step and img/s of each OCR path at batch 8; and one
+   img/s over 512 steps of int4 greedy with and without `block_skip` at
+   batch 8 and 48, beam-5 (int4) over one ring segment, segments of 128
+   and the lattice at batch 8 and 16, int8 greedy at batch 48 (all over the
+   int8 slab), and predict.yaml's beam-5 over the bf16 slab and bf16 KV at
+   batch 8; OCR prefill ms, ms/step and img/s of the int4, int8 and
+   megastep paths at batch 8 and 512 new tokens; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
    fallback cells where random weights emit none) -> SampleEncoder /
    DataCollator with pixels from `data.device_pixels` -> MG greedy int4,
@@ -75,6 +92,7 @@ describing the kernels, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -107,19 +125,29 @@ KERNELS = {
                       "markushgrapher_tpu/models/t5.py:380"),
     "flash_relbias": ("markushgrapher_torch/csrc/flash_relbias.cu",
                       "markushgrapher_tpu/ops/flash_relbias.py:111"),
+    "lattice_self_int4": ("markushgrapher_torch/csrc/lattice_i4.cu",
+                          "markushgrapher_tpu/ops/mxu_decode.py:666"),
+    "normalize_u8": ("markushgrapher_torch/csrc/normalize_u8.cu",
+                     "markushgrapher_tpu/ops/preprocess.py:33"),
 }
+# the decode attention kernels, whose calls inside the model are checked for
+# the first CHECKED_STEPS decode steps
+DECODE_KERNELS = ("decode_int4", "decode_i8", "lattice_self_int4")
 FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 # kernel-vs-plain tolerances (|kernel - plain| <= atol + rtol * |plain|):
-#  - bias_build_i8 is exact (same LUT buckets, same float32 op order);
+#  - bias_build_i8 and normalize_u8 are exact (same LUT buckets, same
+#    float32 op order);
 #  - flash_i8, decode_int4 and decode_i8 return bf16, and sum in another
 #    order than the plain float32 matmuls: two bf16 ulps (2 * 2^-7
 #    relative), plus a small absolute floor for outputs near zero. The
-#    decode kernels also round p * vs to bf16 inside, where a one-ulp flip
-#    of one weight can move the output by a little more.
+#    decode kernels (and the lattice) also round p * vs to bf16 inside, where
+#    a one-ulp flip of one weight can move the output by a little more; over
+#    blocks of keys they also rescale by exp(m_j - m_last) where the plain
+#    version multiplies the running factors, a float32 difference.
 #  - ocr_megastep, one layer at a time on the same bf16 input: the output is
 #    x + attention + MLP rounded to bf16 once, so two output ulps (2 * 2^-7
 #    relative). The kernel sums its GEMVs in another order, so a new K/V
@@ -135,7 +163,8 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 # where they gate the attention output before the o-projection and the
 # residual add.
 TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
-       "decode_i8": (2e-3, 2e-2), "ocr_megastep": (8e-3, 1.6e-2),
+       "decode_i8": (2e-3, 2e-2), "lattice_self_int4": (2e-3, 2e-2),
+       "ocr_megastep": (8e-3, 1.6e-2),
        "flash_bias": (1e-3, 1.6e-2), "flash_relbias": (1e-3, 1.6e-2)}
 WHOLE_STEP_REL = 2e-2
 # flash_bias also returns the float32 log-sum-exp of each row, summed in
@@ -150,16 +179,26 @@ GRAD_ULPS, GRAD_REL = 4, 1e-2
 # step whose every flash call is held to its plain version
 TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 8, 2, 5
 # phase 4's paths at batch 8: (name, encoder route of
-# models.markushgrapher.ROUTES, KV scheme, beams, decode steps). "bf16":
-# float caches and weights, the route of configs/predict.yaml; the others
-# decode with int8 weights
-PATHS = (("greedy_int4", "int8 slab", "int4", 1, 512),
-         ("beam5_int4", "int8 slab", "int4", 5, 512),
-         ("greedy_int8", "int8 slab", "int8", 1, 512),
-         ("beam5_int8", "int8 slab", "int8", 5, 128),
-         ("predict_beam5_bf16", "bf16 slab", "bf16", 5, 128),
-         ("inkernel_greedy_int4", "in-kernel bias", "int4", 1, 128),
-         ("packed_greedy_int4", "packed", "int4", 1, 128))
+# models.markushgrapher.ROUTES, KV scheme, beams, decode steps, options).
+# "bf16": float caches and weights, the route of configs/predict.yaml; the
+# others decode with int8 weights. Options: the beam's copy-on-write ring
+# segment (`self_seg`) and `lattice` (EvalConfig), the model's
+# `block_skip`. A segmented path runs at least two segments.
+PATHS = (("greedy_int4", "int8 slab", "int4", 1, 512, {}),
+         ("beam5_int4", "int8 slab", "int4", 5, 128, {}),
+         ("greedy_int8", "int8 slab", "int8", 1, 128, {}),
+         ("beam5_int8", "int8 slab", "int8", 5, 128, {}),
+         ("predict_beam5_bf16", "bf16 slab", "bf16", 5, 128, {}),
+         ("inkernel_greedy_int4", "in-kernel bias", "int4", 1, 128, {}),
+         ("packed_greedy_int4", "packed", "int4", 1, 128, {}),
+         ("beam5_int4_seg128", "int8 slab", "int4", 5, 512,
+          dict(self_seg=128)),
+         ("beam5_int4_lattice", "int8 slab", "int4", 5, 512,
+          dict(lattice=True)),
+         ("beam5_int8_seg128", "int8 slab", "int8", 5, 256,
+          dict(self_seg=128)),
+         ("greedy_int4_block_skip", "int8 slab", "int4", 1, 512,
+          dict(block_skip=True)))
 # the kernels one encode launches along each route
 ROUTE_KERNELS = {"int8 slab": ("bias_build_i8", "flash_i8"),
                  "bf16 slab": ("flash_bias",),
@@ -170,15 +209,22 @@ ROUTE_KERNELS = {"int8 slab": ("bias_build_i8", "flash_i8"),
 # layers of random weights
 PACK_REL = 2e-3
 CHECKED_STEPS = 8
+# copy-on-write ring segment of the kernel checks (phase 3)
+SEG = 128
 # the OCR paths: batch, new tokens, and (name, OCREngineConfig flags, the
-# kernel each decode step launches)
+# kernel each decode step launches, options: the model's block_skip and the
+# path's new tokens, default OCR_TOKENS)
 OCR_BATCH, OCR_TOKENS = 8, 512
 OCR_PATHS = (
     ("ocr_int4", dict(quant_kv=True, int4_kv=True, quant_weights=True),
-     "decode_int4"),
-    ("ocr_int8", dict(quant_kv=True, quant_weights=True), "decode_i8"),
+     "decode_int4", dict(tokens=256)),
+    ("ocr_int8", dict(quant_kv=True, quant_weights=True), "decode_i8",
+     dict(tokens=256)),
     ("ocr_mega", dict(quant_kv=True, quant_weights=True, megastep=True),
-     "ocr_megastep"))
+     "ocr_megastep", {}),
+    ("ocr_int4_block_skip",
+     dict(quant_kv=True, int4_kv=True, quant_weights=True), "decode_int4",
+     dict(block_skip=True, tokens=128)))
 
 
 def gpu_line() -> str:
@@ -253,8 +299,9 @@ def decode_bound(q, kq, ks, vq, vs, bias, out) -> dict:
 
 
 def decode_run(name, kernel, plain, args, kw, iters=50) -> dict:
-    """A decode kernel against its plain version on the same inputs, timed,
-    beside its bound."""
+    """A decode kernel against its plain version on the same inputs (the
+    six operands q, K, K scales, V, V scales, bias, and the options kw),
+    timed, beside its bound."""
     import torch
 
     got = kernel(*args, **kw)
@@ -403,6 +450,63 @@ def check_kernels(dev, pack: int) -> dict:
         sargs = (query(rows, H), rk, rks, rv, rvs, self_bias(ring, step))
         report(name, f"self rows={rows} R={H} S={ring} step={step}",
                decode_run(name, kernel, plain, sargs, {}))
+        # the same ring as copy-on-write segments of 128 (a random row map
+        # over the 40 rows): read through the map, up to the valid prefix
+        # (3 of 4 blocks at step 300), and both
+        rmap = torch.tensor(rng.randint(0, rows, (rows, ring // SEG)),
+                            dtype=torch.int32, device=dev)
+        prefix = mxu_decode.valid_prefix_blocks(ring, step, SEG)
+        for form, kw in (("row map", dict(row_map=rmap, block_k=SEG)),
+                         ("valid prefix", prefix),
+                         ("row map + valid prefix",
+                          dict(prefix, row_map=rmap))):
+            report(name, f"self rows={rows} R={H} S={ring} step={step}, "
+                   f"{form} (blocks of {SEG}, "
+                   f"{kw.get('live_keys', ring)} keys read)",
+                   decode_run(name, kernel, plain, sargs, kw))
+
+    # the lattice over the int4 rings of the same shape, 1 and 4 live
+    # segments of 128 (steps 100 and 500), each read through the row map
+    rmap = torch.tensor(rng.randint(0, rows, (rows, ring // SEG)),
+                        dtype=torch.int32, device=dev)
+    for n_live, lstep in ((1, 100), (4, 500)):
+        rk, rks = slab(rows, ring, lstep + 1, True)
+        rv, rvs = slab(rows, ring, lstep + 1, True)
+        largs = (query(rows, H), rk, rks, rv, rvs, self_bias(ring, lstep))
+        res = decode_run("lattice_self_int4", mxu_decode.lattice_self_int4,
+                         mxu_decode.plain_lattice_int4, largs,
+                         dict(row_map=rmap, n_live=n_live, seg=SEG))
+        report("lattice_self_int4", f"rows={rows} R={H} S={ring} seg={SEG} "
+               f"n_live={n_live} step={lstep}", res)
+        out["lattice_self_int4"] = res
+
+    # normalize_u8 over uint8 page batches: OCR / VTL pages (image size
+    # 512) at b8 into bf16 (the headline) and float32 (what
+    # preprocess_patchify takes), and at b48 into bf16. Exact against the
+    # plain version; bound by its bytes, 1 in and 2 or 4 out per value
+    from markushgrapher_torch.config import VTLConfig
+    from markushgrapher_torch.ops import preprocess
+
+    side = VTLConfig().image_size
+    for b, dt in ((48, torch.bfloat16), (8, torch.float32),
+                  (8, torch.bfloat16)):
+        pages = torch.tensor(rng.randint(0, 256, (b, side, side, 3)),
+                             dtype=torch.uint8, device=dev)
+        got = preprocess.normalize_u8(pages, 0.5, 0.5, dt)
+        if not torch.equal(got, preprocess.plain_normalize_u8(pages, 0.5,
+                                                              0.5, dt)):
+            raise AssertionError("normalize_u8 differs from plain")
+        res = dict(max_abs_err=0.0,
+                   ms=cuda_ms(lambda: preprocess.normalize_u8(
+                       pages, 0.5, 0.5, dt), 50),
+                   plain_ms=cuda_ms(lambda: preprocess.plain_normalize_u8(
+                       pages, 0.5, 0.5, dt), 20),
+                   library_ms=None,
+                   **bound(nbytes(pages, got), 2 * pages.numel()))
+        report("normalize_u8", f"[{b}, {side}, {side}, 3] uint8 -> "
+               f"{str(dt).split('.')[-1]}", res)
+        out["normalize_u8"] = res
+        del pages, got
     return out
 
 
@@ -825,16 +929,17 @@ def ocr_engine(model, tok, flags: dict, dev, tokens: int = OCR_TOKENS):
         device=str(dev))
 
 
-def drive_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
+def drive_ocr_path(model, tok, pages, flags: dict, dev,
+                   tokens: int = OCR_TOKENS) -> dict:
     """One OCR path through ChemicalOCR.generate_batch_async on uint8 pages,
-    launch counts zeroed just before and read just after; every decode
-    kernel call (or megastep) of the first CHECKED_STEPS steps held to its
-    plain version on the same inputs."""
+    `tokens` new tokens, launch counts zeroed just before and read just
+    after; every decode kernel call (or megastep) of the first
+    CHECKED_STEPS steps held to its plain version on the same inputs."""
     import torch
 
     from markushgrapher_torch.ops import _build
 
-    eng = ocr_engine(model, tok, flags, dev)
+    eng = ocr_engine(model, tok, flags, dev, tokens)
     errs: dict = {}
     with checked_kernels(errs, CHECKED_STEPS * model.cfg.text.num_layers), \
             checked_megastep(errs, CHECKED_STEPS):
@@ -845,8 +950,10 @@ def drive_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
     step_rel = errs.pop("ocr_megastep_step", [])
+    forms = errs.pop("forms")
     return dict(ids=ids, texts=eng.decode_ids(ids[:2]), launches=launches,
                 first_s=time.perf_counter() - t0, step_rel=step_rel,
+                forms=forms,
                 inside={name: (max(e), len(e)) for name, e in errs.items()
                         if e})
 
@@ -953,10 +1060,11 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
     output is held to the kernel tolerance (bias_build_i8: bit-exact; the
     others: TOL, on the attention output before the o-projection and the
     residual add), and the kernel's output goes on. errs[name] collects the
-    max abs error of every checked call. With decode_calls >= 0 only that
-    many decode-kernel calls are checked; later ones go to the kernel
-    alone. The plain versions launch no kernel, so the launch counts stay
-    those of the path."""
+    max abs error of every checked call, errs["forms"] the forms of the
+    decode kernels' calls ("decode_int4 row_map+live_keys", ...). With
+    decode_calls >= 0 only that many decode-kernel calls are checked; later
+    ones go to the kernel alone. The plain versions launch no kernel, so the
+    launch counts stay those of the path."""
     from markushgrapher_torch.ops import (bias_build, flash_attention,
                                           flash_relbias, mxu_decode)
 
@@ -971,14 +1079,21 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
              "decode_int4": (mxu_decode, "cross_decode_mxu_int4",
                              mxu_decode.plain_int4),
              "decode_i8": (mxu_decode, "cross_decode_mxu",
-                           mxu_decode.plain_int8)}
+                           mxu_decode.plain_int8),
+             "lattice_self_int4": (mxu_decode, "lattice_self_int4",
+                                   mxu_decode.plain_lattice_int4)}
     saved = {name: getattr(mod, attr)
              for name, (mod, attr, _) in sites.items()}
     left = [decode_calls]
 
+    forms = errs.setdefault("forms", set())
+
     def check(name, kernel, plain):
         def call(*args, **kw):
-            if name.startswith("decode"):
+            if name in DECODE_KERNELS:
+                forms.add(" ".join([name] + ["+".join(
+                    k for k in ("row_map", "live_keys")
+                    if kw.get(k) is not None)]).strip())
                 if left[0] == 0:
                     return kernel(*args, **kw)
                 left[0] -= 1
@@ -1028,22 +1143,26 @@ def route_model(model, cfg, host: dict, route: str, kv: str):
 
 
 def drive_path(model, mt, cfg, host: dict, route: str, kv: str, beams: int,
-               steps: int) -> dict:
+               steps: int, opts: dict) -> dict:
     """One path through Evaluator.generate_batch, with every launch count
     zeroed just before and read just after; every kernel call of the
     encode and of the first CHECKED_STEPS decode steps is held to its plain
     version on the same inputs along the way. The cross caches pack to the
     batch's ceil-256 valid count under quantised KV (configs/predict.yaml's
-    float KV packs nothing)."""
+    float KV packs nothing). opts: the EvalConfig's self_seg / lattice and
+    the model's block_skip."""
     import torch
 
     from markushgrapher_torch.eval_pipeline import Evaluator
     from markushgrapher_torch.ops import _build
 
-    model = route_model(model, cfg, host, route, kv)
+    opts = dict(opts)
+    model = route_model(model, cfg, host, route, kv).clone(
+        block_skip=opts.pop("block_skip", False))
     batch = host["input_ids"].shape[0]
     ev = Evaluator(model, mt, eval_config(kv, max_length=steps,
-                                          num_beams=beams, batch_size=batch))
+                                          num_beams=beams, batch_size=batch,
+                                          **opts))
     pack = cross_pack(cfg, host)[0] if kv != "bf16" else None
     errs: dict = {}
     checked = CHECKED_STEPS * 2 * cfg.vtl.num_decoder_layers
@@ -1054,8 +1173,10 @@ def drive_path(model, mt, cfg, host: dict, route: str, kv: str, beams: int,
         ids = ev.generate_batch(host, cross_pack_len=pack)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
+    forms = errs.pop("forms")
     return dict(ids=ids, launches=launches, first_s=time.perf_counter() - t0,
-                encoder_pack=model.encoder_pack_len, inside={name: (max(e), len(e)) for name, e in errs.items()
+                encoder_pack=model.encoder_pack_len, forms=forms,
+                inside={name: (max(e), len(e)) for name, e in errs.items()
                         if e})
 
 
@@ -1152,21 +1273,26 @@ def compare_to_plain(model, cfg, host: dict, dev) -> dict:
 
 
 def time_path(model, mt, cfg, host: dict, dev, route: str, kv: str,
-              beams: int) -> dict:
+              beams: int, opts: dict) -> dict:
     """Encode ms, decode ms/step and img/s of one warm generate_batch call
-    (a 16-step run at the same batch warms it up)."""
+    (a 16-step run at the same batch warms it up); opts as drive_path's."""
     import torch
 
     from markushgrapher_torch.eval_pipeline import Evaluator
 
-    model = route_model(model, cfg, host, route, kv)
+    opts = dict(opts)
+    model = route_model(model, cfg, host, route, kv).clone(
+        block_skip=opts.pop("block_skip", False))
     pack = cross_pack(cfg, host)[0] if kv != "bf16" else None
     b, steps = host["input_ids"].shape[0], cfg.max_seq_length_decoder
-    warm = Evaluator(model, mt, eval_config(kv, max_length=16,
-                                            num_beams=beams, batch_size=b))
+    # the warm-up's 16 steps take no ring segments of 128
+    warm = Evaluator(model, mt, eval_config(
+        kv, max_length=16, num_beams=beams, batch_size=b,
+        **{k: v for k, v in opts.items() if k != "self_seg"}))
     warm.generate_batch(host, cross_pack_len=pack)
     ev = Evaluator(model, mt, eval_config(kv, max_length=steps,
-                                          num_beams=beams, batch_size=b))
+                                          num_beams=beams, batch_size=b,
+                                          **opts))
     enc_ms = time_encode(model, host, dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1333,6 +1459,12 @@ def drive_training(dev, card: str) -> dict:
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
+
+    def phase(n: int) -> None:
+        print(f"phase {n} starts at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+
     # phase 1: device
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1351,6 +1483,7 @@ def main() -> None:
     print(f"device: {card} (count {torch.cuda.device_count()})", flush=True)
 
     # phase 2: build
+    phase(2)
     _build.lib()
     ptxas = [ln.strip() for ln in
              str(_build.build_info.get("ptxas", "")).splitlines()
@@ -1359,6 +1492,7 @@ def main() -> None:
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
+    phase(3)
     cfg = MarkushGrapherConfig()
     batch = 8
     mt = MarkushTokenizer()
@@ -1371,6 +1505,7 @@ def main() -> None:
     kres.update(check_flash_relbias(dev))
 
     # phase 4: the paths at full width, through Evaluator.generate_batch
+    phase(4)
     with torch.device(dev):
         model = MarkushGrapherModel(cfg)
     model.init_weights(SEED)
@@ -1380,8 +1515,8 @@ def main() -> None:
           f"encoder max {mv} -> cross pack {pack}", flush=True)
     layers = cfg.vtl.num_decoder_layers
     launches = {}
-    for name, route, kv, beams, steps in PATHS:
-        res = drive_path(model, mt, cfg, host, route, kv, beams, steps)
+    for name, route, kv, beams, steps, opts in PATHS:
+        res = drive_path(model, mt, cfg, host, route, kv, beams, steps, opts)
         ids = res["ids"]
         dec = {"int4": ("decode_int4",), "int8": ("decode_i8",),
                "bf16": ()}[kv]
@@ -1390,11 +1525,26 @@ def main() -> None:
             want[kname] = 1 if kname == "bias_build_i8" else cfg.vtl.num_layers
         for kname in dec:
             want[kname] = 2 * layers * steps
+        if opts.get("lattice"):
+            # the self-attention reads the rings segment by segment
+            dec += ("lattice_self_int4",)
+            want["decode_int4"] = want["lattice_self_int4"] = layers * steps
         packed = res["encoder_pack"]
         print(f"{name} ({route} encoder{f' to {packed}' if packed else ''}, "
-              f"{kv} KV): {steps} steps, launches {res['launches']} "
-              f"(expected {want}); first run {res['first_s']:.2f} s",
+              f"{kv} KV{f', {opts}' if opts else ''}): {steps} steps, "
+              f"launches {res['launches']} (expected {want}); decode forms "
+              f"{sorted(res['forms'])}; first run {res['first_s']:.2f} s",
               flush=True)
+        need = set()
+        if opts.get("self_seg"):
+            need.add(f"{dec[0]} row_map")
+        if opts.get("block_skip"):
+            need.add(f"{dec[0]} live_keys")
+        if opts.get("lattice"):
+            need.add("lattice_self_int4")
+        if not need <= res["forms"]:
+            raise AssertionError(f"{name}: decode calls {sorted(res['forms'])}"
+                                 f" lack the forms {sorted(need)}")
         for kname, (err, n) in res["inside"].items():
             print(f"  inside the model, {kname} vs plain on the same inputs: "
                   f"{n} calls (the encode, {CHECKED_STEPS} decode steps), "
@@ -1432,7 +1582,7 @@ def main() -> None:
     if not (e2e["masks_equal"] and e2e["finite"]):
         raise AssertionError("encoder mask differs or states not finite")
 
-    # phase 4, OCR: the three paths through ChemicalOCR.generate_batch
+    # phase 4, OCR: the four paths through ChemicalOCR.generate_batch
     pages = torch.tensor(np.random.RandomState(SEED).randint(
         0, 256, (OCR_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
     tok = mt.tokenizer
@@ -1441,15 +1591,22 @@ def main() -> None:
     print(f"OCR slice: {sum(p.numel() for p in ocr.parameters()) / 1e6:.1f}M "
           f"params bf16, batch {OCR_BATCH}, L0 {l0}, ring "
           f"{l0 + OCR_TOKENS + (-(l0 + OCR_TOKENS)) % 128}", flush=True)
-    for name, flags, kname in OCR_PATHS:
-        res = drive_ocr_path(ocr, tok, pages, flags, dev)
+    for name, flags, kname, opts in OCR_PATHS:
+        tokens = opts.get("tokens", OCR_TOKENS)
+        # a shallow copy shares the weights and takes its own block_skip
+        routed = copy.copy(ocr)
+        routed.block_skip = opts.get("block_skip", False)
+        res = drive_ocr_path(routed, tok, pages, flags, dev, tokens)
         ids = res["ids"]
         want = {k: 0 for k in KERNELS}
-        want[kname] = (OCR_TOKENS - 1) * (
+        want[kname] = (tokens - 1) * (
             1 if kname == "ocr_megastep" else t.num_layers)
-        print(f"{name}: {OCR_TOKENS} tokens, launches {res['launches']} "
-              f"(expected {want}); first run {res['first_s']:.2f} s",
-              flush=True)
+        print(f"{name}: {tokens} tokens, launches {res['launches']} "
+              f"(expected {want}); decode forms {sorted(res['forms'])}; "
+              f"first run {res['first_s']:.2f} s", flush=True)
+        if routed.block_skip and f"{kname} live_keys" not in res["forms"]:
+            raise AssertionError(f"{name}: no valid-prefix decode call in "
+                                 f"{sorted(res['forms'])}")
         for kn, (err, n) in res["inside"].items():
             print(f"  inside the model, {kn} vs plain on the same inputs: {n} "
                   f"calls ({CHECKED_STEPS} decode steps"
@@ -1462,7 +1619,7 @@ def main() -> None:
         if res["launches"] != want:
             raise AssertionError(f"{name}: launch counts {res['launches']} "
                                  f"!= {want}")
-        if tuple(ids.shape) != (OCR_BATCH, OCR_TOKENS) or int(ids.min()) < 0 \
+        if tuple(ids.shape) != (OCR_BATCH, tokens) or int(ids.min()) < 0 \
                 or int(ids.max()) >= t.vocab_size:
             raise AssertionError(f"{name}: bad ids {tuple(ids.shape)}")
         if set(res["inside"]) != {kname}:
@@ -1483,7 +1640,32 @@ def main() -> None:
     print(f"ocr_int4 end to end vs the plain path: first 8 tokens match "
           f"{float((ids_k == ids_p).float().mean()):.3f}", flush=True)
 
+    # phase 4, the image front end: the OCR pages into MG's VTL patch
+    # vectors through preprocess_patchify, held to its reference bit for bit
+    from markushgrapher_torch.ops import preprocess
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    patches = preprocess.preprocess_patchify(pages, patch=cfg.vtl.patch_size)
+    torch.cuda.synchronize()
+    res = dict(_build.LAUNCHES)
+    want = {k: 0 for k in KERNELS}
+    want["normalize_u8"] = 1
+    side = cfg.vtl.image_size // cfg.vtl.patch_size
+    shape = (OCR_BATCH, side * side, cfg.vtl.patch_size ** 2 * 3)
+    print(f"preprocess_patchify: pages {tuple(pages.shape)} -> "
+          f"{tuple(patches.shape)}, launches {res} (expected {want})",
+          flush=True)
+    if res != want or tuple(patches.shape) != shape or not torch.equal(
+            patches, preprocess.preprocess_patchify_reference(
+                pages, patch=cfg.vtl.patch_size)):
+        raise AssertionError("preprocess_patchify: launches, shape or "
+                             "values differ from the reference")
+    for kn, n in res.items():
+        launches[kn] = launches.get(kn, 0) + n
+
     # phase 5: timing (warm), 512 steps, eos never firing
+    phase(5)
     hosts = {8: host, 48: page_batch(cfg, 48, SEED + 1, mt)}
     for b in (8, 48):
         for route in ROUTE_KERNELS:
@@ -1493,21 +1675,32 @@ def main() -> None:
             packed = routed.encoder_pack_len
             print(f"timing encode {route}{f' to {packed}' if packed else ''}"
                   f" b{b}: {ms:.1f} ms on {card}", flush=True)
-    for label, route, kv, beams, sizes in (
-            ("greedy int4", "int8 slab", "int4", 1, (8, 48)),
-            ("beam-5 int4", "int8 slab", "int4", 5, (8, 16)),
-            ("greedy int8", "int8 slab", "int8", 1, (8, 48)),
-            ("predict.yaml beam-5 bf16", "bf16 slab", "bf16", 5, (8,))):
+    # the copy-on-write beams and block_skip beside the paths they change,
+    # in turns at each batch
+    for label, route, kv, beams, sizes, opts in (
+            ("greedy int4", "int8 slab", "int4", 1, (8, 48), {}),
+            ("greedy int4 block_skip", "int8 slab", "int4", 1, (8, 48),
+             dict(block_skip=True)),
+            ("beam-5 int4 one segment", "int8 slab", "int4", 5, (8, 16), {}),
+            ("beam-5 int4 seg 128", "int8 slab", "int4", 5, (8, 16),
+             dict(self_seg=128)),
+            ("beam-5 int4 lattice", "int8 slab", "int4", 5, (8, 16),
+             dict(lattice=True)),
+            ("greedy int8", "int8 slab", "int8", 1, (48,), {}),
+            ("predict.yaml beam-5 bf16", "bf16 slab", "bf16", 5, (8,), {})):
         for b in sizes:
             if b not in hosts:
                 hosts[b] = page_batch(cfg, b, SEED + 1, mt)
-            t = time_path(model, mt, cfg, hosts[b], dev, route, kv, beams)
+            t = time_path(model, mt, cfg, hosts[b], dev, route, kv, beams,
+                          opts)
             print(f"timing {label} b{b}: encode {t['encode_ms']:.1f} ms, "
                   f"decode {t['decode_ms_per_step']:.3f} ms/step, "
                   f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
                   f"steps, cross pack {t['cross_pack']}, peak "
                   f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
-    for name, flags, _ in OCR_PATHS:
+    for name, flags, _, opts in OCR_PATHS:
+        if opts.get("block_skip"):
+            continue
         t = time_ocr_path(ocr, tok, pages, flags, dev)
         print(f"timing {name} b{OCR_BATCH}: prefill {t['prefill_ms']:.1f} ms, "
               f"decode {t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.3f} "
@@ -1522,6 +1715,7 @@ def main() -> None:
           flush=True)
 
     # phase 6: training at full width through Trainer.train_step
+    phase(6)
     del model, ocr
     gc.collect()
     torch.cuda.empty_cache()

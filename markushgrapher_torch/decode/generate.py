@@ -7,10 +7,17 @@ against preallocated KV caches, with early exit once every row has finished
 picks quantised caches (the model's `int4_cross` scheme, int4 or int8) over
 float caches in the model's dtype, and `quant_weights` the int8 decode
 weights over the model's own.
+
+The quantised beam keeps its self rings as copy-on-write segments (the
+reference's TPU serving default, `pick_self_seg`): after each step only the
+segment the next step writes is reordered by parent beam, and a row map
+says where each beam's earlier segments live; the decode kernels read
+through it, or with the lattice only the live segments.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +38,38 @@ def pack_encoder_for_cross(enc: torch.Tensor, enc_mask: torch.Tensor,
     so only float summation order changes."""
     _, mask_p, enc_p = pack_valid_first(enc_mask, packed_len, enc)
     return enc_p, mask_p
+
+
+def pick_self_seg(max_len: int, self_seg: Optional[int] = None,
+                  lattice: Optional[bool] = None) -> Tuple[int, bool]:
+    """(segment size, lattice) of the quantised beam's copy-on-write self
+    rings (segment 0: the whole-ring reorder), the reference's TPU choice
+    (`decode/generate.py` `_pick_self_seg`). Explicit arguments override
+    the environment: BEAM_LATTICE=1 reads int4 rings segment by segment
+    (`ops.mxu_decode.lattice_self_int4`) over segments of 128 when max_len
+    is a 128-multiple; BEAM_SELF_SEG, a 128-multiple dividing max_len,
+    sets the segment; otherwise one segment of 512 at a 512-multiple, 128
+    at a 128-multiple, else 0. An explicit self_seg may be any divisor of
+    max_len."""
+    if lattice is None:
+        lattice = os.environ.get("BEAM_LATTICE", "0") == "1"
+    if self_seg is not None:
+        if self_seg < 0 or (self_seg and max_len % self_seg):
+            raise ValueError(f"self_seg={self_seg} must divide "
+                             f"max_len={max_len}")
+        return int(self_seg), lattice
+    if lattice and max_len % 128 == 0:
+        return 128, lattice
+    env = os.environ.get("BEAM_SELF_SEG")
+    if env is None:
+        if max_len % 512 == 0:
+            return 512, lattice
+        return (128 if max_len % 128 == 0 else 0), lattice
+    seg = int(env)
+    if seg % 128 or (seg and max_len % seg):
+        raise ValueError(f"BEAM_SELF_SEG={seg} must be a 128-multiple "
+                         f"dividing max_len={max_len}")
+    return seg, lattice
 
 
 def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -121,7 +160,9 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                   pad_id: int = 0, start_id: int = 0,
                   length_penalty: float = 1.0, early_stopping: bool = False,
                   quant_cross_kv: bool = False, quant_weights: bool = False,
-                  cross_pack_len: Optional[int] = None
+                  cross_pack_len: Optional[int] = None,
+                  self_seg: Optional[int] = None,
+                  lattice: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search with HF `_beam_search` semantics, step for step as the
     reference's `beam_generate`: per step the top 2K of the K*V
@@ -136,9 +177,12 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
     hypothesis.
 
     With quant_cross_kv the quantised cross slabs keep one row per sample
-    (the beams share it) and the self rings B*K rows; float caches tile the
-    encoder states and mask per beam, as the reference's. After each step
-    the self caches' live prefix is reordered by parent beam."""
+    (the beams share it) and the self rings B*K rows, kept as copy-on-write
+    segments of `pick_self_seg(max_length, self_seg, lattice)`: after each
+    step only the segment the next step writes is reordered by parent beam
+    (with one segment, the rings' live prefix) and the row map follows the
+    parents. Float caches tile the encoder states and mask per beam, as the
+    reference's, and reorder their live prefix."""
     batch = enc.shape[0]
     dev = enc.device
     k = num_beams
@@ -164,10 +208,20 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
     top_k_mask = (torch.arange(2 * k, device=dev) < k)[None]
     row0 = torch.arange(batch, device=dev)[:, None] * k
     tok = torch.full((batch * k, 1), start_id, dtype=torch.long, device=dev)
+    # copy-on-write self rings (quantised caches): segment s of row b lives
+    # in row rowmap[b, s]; with one segment the map is always the identity
+    # and the kernels read the rings directly
+    seg, lattice = (pick_self_seg(max_length, self_seg, lattice)
+                    if quant_cross_kv else (0, False))
+    n_seg = max_length // seg if seg else 0
+    rows = torch.arange(batch * k, dtype=torch.int32, device=dev)
+    rowmap = rows[:, None].repeat(1, n_seg)
+    seg_ids = torch.arange(n_seg, device=dev)[None]
 
     for step in range(max_length):
         logits = model.decode_step(tok, caches, step, bias_full, cross_bias,
-                                   qw)
+                                   qw, rowmap if n_seg > 1 else None,
+                                   lattice)
         logp = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
         vocab = logp.shape[-1]
         acc = run_scores[..., None] + logp.reshape(batch, k, vocab)
@@ -185,7 +239,18 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
         run_seqs = _take(cand_seqs, live_idx)
         tok = _take(cand_tok, live_idx).reshape(-1, 1)
         parent = (_take(cand_beam, live_idx) + row0).reshape(-1)
-        reorder_self_rings(caches, parent, step + 1)
+        if n_seg > 1:
+            # the segment the next step writes (the last one at the last
+            # step, as the reference's clamped slice) moves with its parent;
+            # earlier segments follow the parent's map, later ones are
+            # still unwritten
+            cs = (step + 1) // seg
+            reorder_self_rings(caches, parent, min(cs * seg,
+                                                   max_length - seg), seg)
+            rowmap = torch.where(seg_ids >= cs, rows[:, None],
+                                 rowmap[parent])
+        else:
+            reorder_self_rings(caches, parent, 0, step + 1)
 
         # finished-set update: only top-K-ranked candidates that hit a
         # stopping criterion finish; scores normalised by generated length
@@ -222,10 +287,12 @@ def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
              num_beams: int = 1, eos_id: int = 1, pad_id: int = 0,
              start_id: int = 0, quant_cross_kv: bool = False,
              quant_weights: bool = False,
-             cross_pack_len: Optional[int] = None) -> torch.Tensor:
-    """Encode + decode (greedy, or beam search for num_beams > 1). `batch`
-    holds input_ids / bbox / attention_mask and the pixel inputs the
-    architecture variant needs."""
+             cross_pack_len: Optional[int] = None,
+             self_seg: Optional[int] = None,
+             lattice: Optional[bool] = None) -> torch.Tensor:
+    """Encode + decode (greedy, or beam search for num_beams > 1, with its
+    self_seg / lattice). `batch` holds input_ids / bbox / attention_mask and
+    the pixel inputs the architecture variant needs."""
     enc, enc_mask = model.encode(
         batch["input_ids"], batch["bbox"], batch["attention_mask"],
         batch.get("pixel_values"), batch.get("ocsr_pixel_values"))
@@ -235,5 +302,6 @@ def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
         return greedy_generate(model, enc, enc_mask, max_length, eos_id,
                                pad_id, start_id, **kw)
     ids, _ = beam_generate(model, enc, enc_mask, max_length, num_beams,
-                           eos_id, pad_id, start_id, **kw)
+                           eos_id, pad_id, start_id, self_seg=self_seg,
+                           lattice=lattice, **kw)
     return ids

@@ -12,10 +12,13 @@ the quantised KV scheme, and `quant_kv` / `quant_weights` / `int4_cross` /
 `cross_pack_len` reach the `EvalConfig`. With none of them set (the
 reference's `configs/predict.yaml`) the encoder runs the bf16 bias slab and
 decode uses bf16 KV caches and bf16 weights. Runs on the CUDA device unless
-the caller passes `device="cpu"`. Weights: `model_name_or_path` may
-name an `.npz` of the flattened flax parameter tree ("/"-joined paths,
-through `convert.from_jax`); otherwise the model runs from a seeded random
-init. Orbax checkpoint restore is not ported yet.
+the caller passes `device="cpu"`. Weights, as the reference restores
+them: `model_name_or_path` names a checkpoint directory (`checkpoint-N`
+of `train_main`, through `Checkpointer.restore_params`) or an `.npz` of the
+flattened flax parameter tree ("/"-joined paths, through
+`convert.from_jax`); when it is empty, the last checkpoint under
+`output_dir`; when none of these exists, a seeded random init, with a
+warning.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
 from markushgrapher_torch.convert.from_jax import params_from_jax
 from markushgrapher_torch.eval_pipeline import EvalConfig, Evaluator
 from markushgrapher_torch.models.markushgrapher import MarkushGrapherModel
+from markushgrapher_torch.train.checkpoint import Checkpointer, last_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -58,19 +62,26 @@ def load_npz_tree(path: str) -> Dict:
     return tree
 
 
-def build_model(margs, dargs, device) -> MarkushGrapherModel:
+def build_model(margs, dargs, targs, device) -> MarkushGrapherModel:
+    """The model of the YAML's flags with its weights: the checkpoint
+    `model_name_or_path` names (a directory) or else the last one under
+    `targs.output_dir`, an `.npz` flax tree, or a seeded random init."""
     cfg = build_model_config(margs, dargs)
     with torch.device(device):
         model = MarkushGrapherModel(cfg, int4_cross=margs.int4_cross,
                                     bias_int8=margs.bias_int8,
                                     bias_kernel=margs.bias_kernel,
                                     encoder_pack_len=margs.encoder_pack_len)
-    path = margs.model_name_or_path
-    if path and path.endswith(".npz") and os.path.isfile(path):
+    path = margs.model_name_or_path or last_checkpoint(targs.output_dir)
+    if path and os.path.isdir(path):
+        logger.info("loading checkpoint %s", path)
+        ckptr = Checkpointer(os.path.dirname(path) or ".")
+        model.load_state_dict(ckptr.restore_params(path))
+    elif path and path.endswith(".npz") and os.path.isfile(path):
         logger.info("loading weights %s", path)
         model.load_state_dict(params_from_jax(load_npz_tree(path)))
     else:
-        logger.warning("no .npz weights given; evaluating random init")
+        logger.warning("no checkpoint found; evaluating random init")
         model.init_weights(seed=0)
     return model
 
@@ -87,7 +98,7 @@ def main(config_path: Optional[str] = None,
         raise RuntimeError(
             "markushgrapher_torch.eval_main runs on a CUDA device and found "
             "none; pass device='cpu' to run the plain versions on the CPU")
-    model = build_model(margs, dargs, device)
+    model = build_model(margs, dargs, targs, device)
 
     registry = DatasetRegistry.from_yaml(dargs.datasets_config)
     test_ds = registry.build(

@@ -31,7 +31,7 @@ from markushgrapher_torch.chem.abbreviation import Abbreviation, fix_cxsmiles
 from markushgrapher_torch.chem.evaluation import aggregate_scores, score_sample
 from markushgrapher_torch.data.collator import DataCollator
 from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
-from markushgrapher_torch.decode.generate import generate
+from markushgrapher_torch.decode.generate import generate, pick_self_seg
 from markushgrapher_torch.data.bucketing import bucket_pack_lengths
 from markushgrapher_torch.models.markushgrapher import (encoder_valid_counts,
                                                         encoder_valid_max)
@@ -66,6 +66,11 @@ class EvalConfig:
     bucket_round_to: int = 256   # pack lengths round up to this multiple
     bucket_margin: int = 64      # headroom above each sample's valid count
     save_visualizations: int = 0
+    # the quantised beam's copy-on-write self rings: segment size and the
+    # lattice reads (None: decode.generate.pick_self_seg's default and its
+    # BEAM_SELF_SEG / BEAM_LATTICE environment)
+    self_seg: Optional[int] = None
+    lattice: Optional[bool] = None
     # -1 never fires: a benchmark on random weights decodes max_length steps
     eos_id: int = 1
 
@@ -141,22 +146,28 @@ class Evaluator:
                        eos_id=self.cfg.eos_id,
                        quant_cross_kv=self.cfg.quant_kv,
                        quant_weights=self.cfg.quant_weights,
-                       cross_pack_len=pack)
+                       cross_pack_len=pack, self_seg=self.cfg.self_seg,
+                       lattice=self.cfg.lattice)
         return out.cpu().numpy()
 
     # -- the loop -----------------------------------------------------------
 
     def _cache_digest(self) -> str:
         """Key the prediction cache on what changes predictions: the decode
-        config, the KV scheme and encoder route the model runs, the pack
-        lengths and a weights fingerprint, so stale predictions are never
-        re-scored."""
+        config (with the quantised beam's ring segments and lattice, which
+        move scores at the bf16 level), the KV scheme, encoder route and
+        valid-prefix reads the model runs, the pack lengths and a weights
+        fingerprint, so stale predictions are never re-scored."""
         if self._params_fp is None:
             self._params_fp = float(sum(
                 p.detach().to(torch.float32).sum().item()
                 for p in self.model.parameters()))
         cfg, m = self.cfg, self.model
+        seg, lattice = ((0, False) if cfg.num_beams <= 1 or not cfg.quant_kv
+                        else pick_self_seg(cfg.max_length, cfg.self_seg,
+                                           cfg.lattice))
         key = (f"torch;beams={cfg.num_beams};len={cfg.max_length};"
+               f"seg={seg};lattice={lattice};block_skip={m.block_skip};"
                f"qkv={cfg.quant_kv};qw={cfg.quant_weights};"
                f"i4={cfg.quant_kv and m.int4_cross};xp={cfg.cross_pack_len};"
                f"lb={cfg.length_buckets},{cfg.bucket_round_to},"

@@ -24,7 +24,9 @@ change nothing.
 
 The decode side serves float caches in the model's dtype, or quantised KV
 caches (int4 or int8, the reference's `int4_cross` flag), with the modules'
-weights or int8 decode weights (`quantize_weights`).
+weights or int8 decode weights (`quantize_weights`). `block_skip` (the
+reference's flag and default) reads only the quantised self rings' valid
+prefix.
 
 `use_kernels=False` makes the model call each kernel's plain PyTorch version
 directly on any device: the reference path that the card's kernels are held
@@ -163,7 +165,8 @@ class MarkushGrapherModel(nn.Module):
                  int4_cross: bool = True, remat: bool = False,
                  bias_int8: bool = False, bias_kernel: bool = False,
                  bias_kernel_relayout: str = "kernel",
-                 inkernel_bias: bool = False, encoder_pack_len: int = 0):
+                 inkernel_bias: bool = False, encoder_pack_len: int = 0,
+                 block_skip: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
@@ -180,6 +183,8 @@ class MarkushGrapherModel(nn.Module):
         # static packed VTL encoder length (0 = off): must bound every row's
         # VTL valid count (encoder_valid_max without the molscribe tokens)
         self.encoder_pack_len = encoder_pack_len
+        # decode: read only the quantised self rings' valid prefix
+        self.block_skip = block_skip
         vtl = cfg.vtl
         nb, heads = vtl.relative_attention_num_buckets, vtl.num_heads
         self.shared_embedding = nn.Parameter(
@@ -211,7 +216,8 @@ class MarkushGrapherModel(nn.Module):
 
     # the constructor's flags after cfg, which `clone` may replace
     FLAGS = ("use_kernels", "int4_cross", "remat", "bias_int8", "bias_kernel",
-             "bias_kernel_relayout", "inkernel_bias", "encoder_pack_len")
+             "bias_kernel_relayout", "inkernel_bias", "encoder_pack_len",
+             "block_skip")
 
     def clone(self, **flags) -> "MarkushGrapherModel":
         """This model with some constructor flags replaced (an encoder
@@ -453,16 +459,21 @@ class MarkushGrapherModel(nn.Module):
     @torch.no_grad()
     def decode_step(self, token_ids: torch.Tensor, caches, step: int,
                     bias_full: torch.Tensor, cross_bias: torch.Tensor,
-                    qw: Optional[Dict] = None) -> torch.Tensor:
+                    qw: Optional[Dict] = None,
+                    row_map: Optional[torch.Tensor] = None,
+                    lattice: bool = False) -> torch.Tensor:
         """token_ids [rows, 1]; cross_bias [B, 1, K] f32 over the cross
         caches' rows (masked keys, and a quantised slab's padding, very
-        negative); qw: `quantize_weights()` or None. Returns float32 logits
+        negative); qw: `quantize_weights()` or None; row_map (int32 [rows,
+        n_seg]): beam search's copy-on-write ring segments, read segment by
+        segment under `lattice` (int4 rings). Returns float32 logits
         [rows, 1, V]."""
         x = self.embed_tokens(token_ids)
         x = self.decoder.decode_step(x, caches, step, bias_full[:, :, step],
                                      cross_bias,
                                      None if qw is None else qw["layers"],
-                                     self.use_kernels)
+                                     self.use_kernels, row_map,
+                                     self.block_skip, lattice)
         if qw is None:
             return F.linear(x.to(torch.float32),
                             self.lm_head.weight.to(torch.float32))

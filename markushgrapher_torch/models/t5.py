@@ -29,7 +29,11 @@ self caches are written in place at each step. Quantised cross slabs keep
 one row per sample while the self rings carry `self_rows` rows (batch *
 beams under beam search): the beam cross folds the beams into the kernel's
 query rows with a `head_map`, so every beam of a sample reads its shared
-slab in one pass. Float caches are tiled per beam, as the reference's. The
+slab in one pass. Float caches are tiled per beam, as the reference's.
+Beam search may keep the quantised rings as copy-on-write segments read
+through a row map (`reorder_self_rings`, the `row_map` and `lattice`
+options of the decode step), and `block_skip` reads only the rings' valid
+prefix (`DecoderLayer._self_attend_quant`). The
 decode-step matmuls run against the modules' weights, or (quant_weights)
 against int8 weights dequantised to the compute dtype and scaled per output
 channel afterwards.
@@ -332,19 +336,25 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def reorder_self_rings(caches: List[Cache], parent: torch.Tensor,
-                       live: int) -> None:
+                       start: int, length: int) -> None:
     """Beam reorder of every layer's self caches, in place: row i takes row
-    parent[i]'s live prefix [0, live). Positions past it are still the
-    unwritten zeros in every row, so reordering them would change nothing
-    (the reference's whole-ring copy-on-write with one segment, and its
-    whole-cache gather of float caches)."""
+    parent[i]'s positions [start, start + length).
+      - The live-prefix form (start 0, length step + 1): positions past the
+        decode index are still the unwritten zeros in every row, so
+        reordering them would change nothing (the reference's whole-ring
+        copy-on-write with one segment, `_cow_rings_prefix`, and its
+        whole-cache gather of float caches).
+      - The copy-on-write form (`_cow_rings`): only the segment that the
+        next step writes; the earlier segments stay where they are and are
+        read through the beam's row map."""
     for cache in caches:
         for name, ring in cache.items():
             if name.startswith("self_"):
                 # values [rows, S, width] or [rows, S, H, D], scales
                 # [rows, H, S]
-                prefix = ring.narrow(2 if name.endswith("_s") else 1, 0, live)
-                prefix.copy_(prefix.index_select(0, parent))
+                part = ring.narrow(2 if name.endswith("_s") else 1, start,
+                                   length)
+                part.copy_(part.index_select(0, parent))
 
 
 class DecoderLayer(nn.Module):
@@ -467,16 +477,54 @@ class DecoderLayer(nn.Module):
         return (mxu_decode.cross_decode_mxu if use_kernels
                 else mxu_decode.plain_int8), "_q"
 
+    def _self_attend_quant(self, q, cache: Cache, step: int,
+                           self_bias_row: torch.Tensor, use_kernels: bool,
+                           row_map: Optional[torch.Tensor], block_skip: bool,
+                           lattice: bool) -> torch.Tensor:
+        """Self-attention over the quantised rings, the kernel chosen as the
+        reference's `_self_attend_quant`: under a row map (beam search's
+        copy-on-write segments) key blocks of one segment, composed with
+        the valid prefix under block_skip; under block_skip alone blocks of
+        128 keys and the valid prefix; with the lattice (int4 rings) only
+        the live segments, each read through the map."""
+        attend, suffix = self._attend_fn(cache, use_kernels)
+        ring_len = cache["self_k" + suffix].shape[1]
+        kw: Dict = {}
+        if row_map is not None:
+            seg = ring_len // row_map.shape[1]
+            if lattice and suffix == "_q4":
+                lattice_fn = (mxu_decode.lattice_self_int4 if use_kernels
+                              else mxu_decode.plain_lattice_int4)
+                return lattice_fn(q, cache["self_k_q4"], cache["self_k_s"],
+                                  cache["self_v_q4"], cache["self_v_s"],
+                                  self_bias_row, row_map, step // seg + 1,
+                                  seg)
+            kw = dict(row_map=row_map, block_k=seg)
+            if block_skip:
+                kw.update(mxu_decode.valid_prefix_blocks(ring_len, step, seg))
+        elif block_skip:
+            kw = mxu_decode.valid_prefix_blocks(ring_len, step, 128)
+        return attend(q, cache["self_k" + suffix], cache["self_k_s"],
+                      cache["self_v" + suffix], cache["self_v_s"],
+                      self_bias_row, **kw)
+
     def decode_step(self, x: torch.Tensor, cache: Cache, step: int,
                     self_bias_row: torch.Tensor, cross_bias: torch.Tensor,
                     qw: Optional[Dict[str, torch.Tensor]],
-                    use_kernels: bool = True) -> torch.Tensor:
+                    use_kernels: bool = True,
+                    row_map: Optional[torch.Tensor] = None,
+                    block_skip: bool = False,
+                    lattice: bool = False) -> torch.Tensor:
         """x [rows, 1, D]; self_bias_row [1, H, S] f32 (causal row);
         cross_bias [B, 1, K] f32 over the cross caches' rows (rows = B *
         beams for quantised slabs, which beams share; B = rows for float
         caches, tiled per beam). qw: int8 decode weights, or None for the
-        module's own. Writes this step's K/V into the self caches in
-        place."""
+        module's own. row_map (int32 [rows, n_seg]): ring segment s of row
+        b lives in row row_map[b, s] (beam search's copy-on-write rings;
+        the segment being written is always b's own); block_skip: read the
+        rings' valid prefix only; lattice: read int4 rings under a row map
+        segment by segment (`_self_attend_quant`). Writes this step's K/V
+        into the self caches in place."""
         rows = x.shape[0]
         heads, dk = self.num_heads, self.d_kv
         hd = heads * dk
@@ -495,11 +543,10 @@ class DecoderLayer(nn.Module):
             out = dense_attention(q, cache["self_k"], cache["self_v"],
                                   self_bias_row[:, :, None, :])
         else:
-            attend, suffix = self._attend_fn(cache, use_kernels)
             self._write_ring(cache, step, k_new, v_new)
-            out = attend(q[:, 0], cache["self_k" + suffix],
-                         cache["self_k_s"], cache["self_v" + suffix],
-                         cache["self_v_s"], self_bias_row)
+            out = self._self_attend_quant(q[:, 0], cache, step,
+                                          self_bias_row, use_kernels,
+                                          row_map, block_skip, lattice)
         x = x + self._proj(sa, "o", out.reshape(rows, 1, hd), qw, "self_o")
         q = self._proj(ca, "q", self.ln_cross(x), qw,
                        "cross_q")                             # [rows,1,HD]
@@ -558,10 +605,15 @@ class Decoder(nn.Module):
         return [layer.quantize_weights() for layer in self.layers()]
 
     def decode_step(self, x, caches, step, self_bias_row, cross_bias, qw,
-                    use_kernels: bool = True) -> torch.Tensor:
-        """qw: the per-layer int8 weights, or None for the modules' own."""
+                    use_kernels: bool = True,
+                    row_map: Optional[torch.Tensor] = None,
+                    block_skip: bool = False,
+                    lattice: bool = False) -> torch.Tensor:
+        """qw: the per-layer int8 weights, or None for the modules' own;
+        row_map / block_skip / lattice as `DecoderLayer.decode_step`."""
         for layer, cache, lqw in zip(self.layers(), caches,
                                      qw or [None] * self.num_layers):
             x = layer.decode_step(x, cache, step, self_bias_row, cross_bias,
-                                  lqw, use_kernels)
+                                  lqw, use_kernels, row_map, block_skip,
+                                  lattice)
         return self.final_ln(x)

@@ -11,7 +11,9 @@ Not ported yet (ROADMAP queue 1 item 7): continuous batching
 (`stream=True` raises; `generate_stream` / `stream_retired`), and the JAX
 config's W8A8 and int4 decode weights (`act_quant`, `weight_bits`, refused
 by `build_ocr_configs` as unknown keys). The engine runs on the CUDA device
-unless the caller passes `device="cpu"`.
+unless the caller passes `device="cpu"`. It takes a built model, as the
+reference's does: valid-prefix ring reads are the model's flag
+(`ChemicalOCRModel(cfg, block_skip=True)`).
 """
 
 from __future__ import annotations

@@ -19,9 +19,11 @@ Decode keeps one ring per layer, `L0 + max_new_tokens` long rounded up to a
     `cross_decode_mxu_int4`.
 The JAX package repeats the scales to the query heads ([B, H, S]); the port's
 decode kernels take one scale row per kv head and group the query heads
-themselves, so the rings keep [B, G, S]. The combined k||v int4 ring, the
-vector-step (per-row position) decode of continuous batching, `block_skip`
-and W8A8 / int4 weights are not ported (ROADMAP). The whole-step decode
+themselves, so the rings keep [B, G, S]. `block_skip` (the reference's flag
+and default) reads only the quantised rings' valid prefix, in blocks of 128
+keys (`ops.mxu_decode.valid_prefix_blocks`). The combined k||v int4 ring,
+the vector-step (per-row position) decode of continuous batching and W8A8 /
+int4 weights are not ported (ROADMAP). The whole-step decode
 (`decode_step_mega`) runs every layer in one launch of `ops.megastep`.
 """
 
@@ -299,11 +301,13 @@ class LMLayer(nn.Module):
         return qlinear(mid, qw["down_q"], qw["down_s"])
 
     def decode_step(self, x, cache: Cache, rope, positions, slot: int,
-                    kv_mask, qw=None, use_kernels: bool = True
-                    ) -> torch.Tensor:
+                    kv_mask, qw=None, use_kernels: bool = True,
+                    block_skip: bool = False) -> torch.Tensor:
         """x [B, 1, D]; one token at ring slot `slot` (every row shares it);
         kv_mask [1, 1, 1, S] float32 (0 up to the slot, float32's lowest
-        after). Writes this step's K/V into the ring in place."""
+        after). block_skip: a quantised ring is read up to the 128-key
+        block of the slot (the reference's `_skip_kw`). Writes this step's
+        K/V into the ring in place."""
         h = self.ln_attn(x)
         q, k_new, v_new = self._qkv_decode(h, qw)
         q = apply_rope(q, rope, positions)
@@ -330,19 +334,25 @@ class LMLayer(nn.Module):
             else:
                 attend = (mxu_decode.cross_decode_mxu if use_kernels
                           else mxu_decode.plain_int8)
+            ring_len = cache["k" + vals].shape[1]
+            kw = (mxu_decode.valid_prefix_blocks(ring_len, slot, 128)
+                  if block_skip else {})
             # the grouped map (query head r reads kv block r // (H / G))
             out = attend(q[:, 0] * self.d ** -0.5, cache["k" + vals],
                          cache["k" + scales], cache["v" + vals],
-                         cache["v" + scales], kv_mask[:, 0])[:, None]
+                         cache["v" + scales], kv_mask[:, 0], **kw)[:, None]
         x = x + self._o_proj(out, qw)
         return x + self._mlp_decode(self.ln_mlp(x), qw)
 
 
 class ChemicalOCRModel(nn.Module):
-    def __init__(self, cfg: OCRConfig, use_kernels: bool = True):
+    def __init__(self, cfg: OCRConfig, use_kernels: bool = True,
+                 block_skip: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        # per-layer decode: read only the quantised rings' valid prefix
+        self.block_skip = block_skip
         t = cfg.text
         self.vision = VisionTower(cfg.vision)
         self.connector = Connector(cfg)
@@ -481,7 +491,8 @@ class ChemicalOCRModel(nn.Module):
         layer_qw = qw["layers"] if qw is not None else [None] * len(caches)
         for layer, cache, lqw in zip(self.layers(), caches, layer_qw):
             x = layer.decode_step(x, cache, self.rope(), positions, slot,
-                                  kv_mask, lqw, self.use_kernels)
+                                  kv_mask, lqw, self.use_kernels,
+                                  self.block_skip)
         x = self.final_ln(x)
         if qw is not None:
             return self._head(x, qw["lm_head"])

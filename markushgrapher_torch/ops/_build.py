@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
-(the two decode kernels and the OCR megastep share `decode_common.cuh`, the
-float-bias flash forward and backward and the in-kernel-bias flash forward
-`flash_bias.cuh`). At first use they are
-compiled with nvcc for Hopper (`sm_90a`), one nvcc
-process per source, all started together, and linked into one shared
+(the two decode kernels, the lattice kernel and the OCR megastep share
+`decode_common.cuh`, the float-bias flash forward and backward and the
+in-kernel-bias flash forward `flash_bias.cuh`). At first use they are
+compiled with nvcc for Hopper (`sm_90a`), one nvcc process per source, all
+started together, and linked into one shared
 library under `markushgrapher_torch/_build/` (named by a hash of the sources
 and flags, so an edit rebuilds), loaded with ctypes. Nothing is built or
 imported at module import: the CPU tests import every module.
@@ -33,7 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
            "decode_i8.cu", "ocr_megastep.cu", "flash_bias.cu",
-           "flash_bias_bwd.cu", "flash_relbias.cu")
+           "flash_bias_bwd.cu", "flash_relbias.cu", "lattice_i4.cu",
+           "normalize_u8.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf. The
 # megastep's grid.sync() needs no -rdc (CUDA 11 and later).
@@ -44,7 +45,8 @@ LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
                             "decode_int4": 0, "decode_i8": 0,
                             "ocr_megastep": 0, "flash_bias": 0,
                             "flash_bias_dkv": 0, "flash_bias_dq": 0,
-                            "flash_relbias": 0}
+                            "flash_relbias": 0, "lattice_self_int4": 0,
+                            "normalize_u8": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -53,10 +55,16 @@ _SIGNATURES = {
     "mg_bias_build_i8": [_P] * 9 + [_I] * 6 + [_F, _P, _P],
     # q, k, v, bias, scales, key_mask, B, L, H, D, out, stream
     "mg_flash_i8": [_P] * 6 + [_I] * 4 + [_P, _P],
-    # q, kq, ks, vq, vs, bias, head_map, B, R, G, D, K, scale_rows,
-    # bias_bstride, bias_rstride, out_bf16, out, stream
-    "mg_decode_int4": [_P] * 7 + [_I] * 9 + [_P, _P],
-    "mg_decode_i8": [_P] * 7 + [_I] * 9 + [_P, _P],
+    # q, kq, ks, vq, vs, bias, head_map, row_map, B, R, G, D, K,
+    # scale_rows, bias_bstride, bias_rstride, block_k, live, out_bf16, out,
+    # stream
+    "mg_decode_int4": [_P] * 8 + [_I] * 11 + [_P, _P],
+    "mg_decode_i8": [_P] * 8 + [_I] * 11 + [_P, _P],
+    # q, kq, ks, vq, vs, bias, row_map, B, R, G, D, L, scale_rows,
+    # bias_bstride, bias_rstride, seg, n_live, out_bf16, out, stream
+    "mg_lattice_i4": [_P] * 7 + [_I] * 11 + [_P, _P],
+    # in, n, 1/255, mean, 1/std, out_bf16, out, stream
+    "mg_normalize_u8": [_P, ctypes.c_longlong, _F, _F, _F, _I, _P, _P],
     # x, out, scratch, rope, kq, ks, vq, vs, wqkv, sqkv, wo, so, wgu, sgu,
     # wd, sd, ln_attn, ln_mlp, L, B, S, Dm, H, G, D, F, pos, eps,
     # inv_sqrt_d, stream

@@ -1,7 +1,7 @@
 """Where the time of an encode, a prefill and a decode step goes on the card.
 
     python -m markushgrapher_torch.trace_paths [--stage all|mg|ocr|train]
-        [--out FILE]
+        [--paths LABEL,...] [--batches N,...] [--out FILE]
 
 MarkushGrapher (`--stage mg`): the flagship `MarkushGrapherConfig()` with
 seeded random bf16 weights on seeded synthetic pages (as `chip_smoke.py`
@@ -9,20 +9,26 @@ does); one encode along each encoder route (int8 slab, bf16 slab, in-kernel
 bias, packed) and, for each decode path (greedy or beam-5 under int4 or int8
 KV with int8 weights, and `configs/predict.yaml`'s beam-5 over bf16 KV and
 bf16 weights) at the batch sizes below, 512 steps' worth of caches with eos
-never firing.
+never firing. Beam-5 int4 also runs over copy-on-write rings of four
+128-position segments (read through the row map, and with the lattice) and
+greedy int4 under `block_skip`, with windows at steps 32-48 and 300-316
+beside the one-segment beam's and the full-ring greedy's.
 ChemicalOCR (`--stage ocr`): `OCRConfig()` with seeded random bf16 weights
 on seeded uint8 pages at batch 8, through `ChemicalOCR.generate_batch`
 with 512 new tokens, along its three paths (int4 KV, int8 KV, megastep).
 Training (`--stage train`): one `Trainer.train_step` of the flagship at
 batch 8 on seeded labelled pages, TrainConfig from configs/train.yaml
 without accumulation (as `chip_smoke.py` phase 6), after two warm steps.
-Steps SKIP..SKIP+STEPS run twice: once untraced (host clock, synchronised
-at both ends) and once under `torch.profiler` with CPU and CUDA activities.
+Steps skip..skip+STEPS (skip = SKIP unless a path says otherwise) run twice:
+once untraced (host clock, synchronised at both ends) and once under
+`torch.profiler` with CPU and CUDA activities.
 One encode (MG) or prefill (OCR) per batch size is traced the same way. For
 each window it prints one line: untraced and traced ms per step, CUDA
 kernels per step, the device busy share (the union of kernel intervals over
-the traced wall) and the device time by kind of kernel. `--out` also writes
-the windows as JSON, with the top kernels by name. Needs one CUDA device.
+the traced wall) and the device time by kind of kernel. `--paths` / `--batches`
+keep only the MG decode windows of those labels of PATHS and those batch
+sizes (the encodes run at the batch sizes kept). `--out` also writes the
+windows as JSON, with the top kernels by name. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -34,17 +40,29 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 SEED = 0
 SKIP, STEPS = 32, 16
 TOP = 12            # kernels by name kept per window in the JSON
-# (label, KV scheme, beams, batch sizes); "bf16": float caches and weights
-PATHS = (("greedy int4", "int4", 1, (8, 48)),
-         ("greedy int8", "int8", 1, (8, 48)),
-         ("beam-5 int4", "int4", 5, (8, 16)),
-         ("beam-5 int8", "int8", 5, (8, 16)),
-         ("beam-5 bf16 (predict.yaml)", "bf16", 5, (8,)))
+# (label, KV scheme, beams, batch sizes, options); "bf16": float caches and
+# weights. Options: the beam's self_seg / lattice, the model's block_skip,
+# and the first step of the window (default SKIP).
+PATHS = (("greedy int4", "int4", 1, (8, 48), {}),
+         ("greedy int8", "int8", 1, (8, 48), {}),
+         ("beam-5 int4", "int4", 5, (8, 16), {}),
+         ("beam-5 int8", "int8", 5, (8, 16), {}),
+         ("beam-5 bf16 (predict.yaml)", "bf16", 5, (8,), {}),
+         ("beam-5 int4 seg 128", "int4", 5, (8, 16), dict(self_seg=128)),
+         ("beam-5 int4 lattice", "int4", 5, (8, 16), dict(lattice=True)),
+         ("greedy int4 block_skip", "int4", 1, (8, 48),
+          dict(block_skip=True)))
+# later windows of the paths whose reads grow with the decode index
+LATE = dict(skip=300)
+PATHS += tuple((label, kv, beams, sizes, dict(opts, **LATE))
+               for label, kv, beams, sizes, opts in PATHS
+               if label in ("greedy int4", "beam-5 int4")
+               or set(opts) & {"self_seg", "lattice", "block_skip"})
 # (label, ChemicalOCR engine flags) at batch OCR_BATCH
 OCR_BATCH = 8
 OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
@@ -55,7 +73,8 @@ OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
 TRAIN_BATCH, TRAIN_WARM = 8, 2
 # device-time kinds, by the first substring of the kernel name that matches
 KINDS = (("ocr_megastep", ("ocr_megastep",)),
-         ("decode attention", ("decode_i8_kernel", "decode_int4_kernel")),
+         ("decode attention", ("decode_i8_kernel", "decode_int4_kernel",
+                               "lattice_i4_kernel")),
          ("flash_i8", ("flash_i8",)), ("bias_build_i8", ("bias_build",)),
          ("flash_bias", ("flash_bias_fwd",)),
          ("flash_relbias", ("flash_relbias",)),
@@ -65,6 +84,22 @@ KINDS = (("ocr_megastep", ("ocr_megastep",)),
          ("copy / fill", ("Memcpy", "Memset", "copy_", "fill_")),
          ("sort / top-k", ("sort", "Sort", "topk", "radix")),
          ("reduce", ("reduce", "Reduce")))
+
+
+def select_paths(labels=None, batches=None) -> tuple:
+    """PATHS cut to the given labels (comma-separated, each a label of
+    PATHS) and batch sizes (comma-separated); None keeps all."""
+    keep = None if labels is None else set(labels.split(","))
+    sizes = None if batches is None else {int(b) for b in batches.split(",")}
+    if keep is not None and keep - {p[0] for p in PATHS}:
+        raise ValueError(f"not a label of PATHS: "
+                         f"{sorted(keep - {p[0] for p in PATHS})}")
+    out = []
+    for label, kv, beams, bs, opts in PATHS:
+        bs = tuple(b for b in bs if sizes is None or b in sizes)
+        if bs and (keep is None or label in keep):
+            out.append((label, kv, beams, bs, opts))
+    return tuple(out)
 
 
 class _WindowDone(Exception):
@@ -115,12 +150,14 @@ def summarise(prof, wall_s: float, steps: int) -> Dict:
                 top_kernels_ms_per_step=per_step(by_name, TOP))
 
 
-def step_window(model, attr: str, run, traced) -> Tuple[float, object]:
+def step_window(model, attr: str, run, traced,
+                skip: Optional[int] = None) -> Tuple[float, object]:
     """Call run(), a decode loop that calls model.<attr> once per step,
-    until step SKIP + STEPS; returns the host seconds of steps
-    SKIP..SKIP+STEPS and the profiler (or None)."""
+    until step skip + STEPS (skip default SKIP); returns the host seconds of
+    steps skip..skip+STEPS and the profiler (or None)."""
     import torch
 
+    skip = SKIP if skip is None else skip
     prof = (torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA]) if traced else None)
@@ -129,9 +166,9 @@ def step_window(model, attr: str, run, traced) -> Tuple[float, object]:
     state = {"n": 0}
 
     def step(*args, **kw):
-        if state["n"] in (SKIP, SKIP + STEPS):
+        if state["n"] in (skip, skip + STEPS):
             torch.cuda.synchronize()
-            if state["n"] == SKIP:
+            if state["n"] == skip:
                 if prof is not None:
                     prof.start()
                 state["t0"] = time.perf_counter()
@@ -157,10 +194,11 @@ def step_window(model, attr: str, run, traced) -> Tuple[float, object]:
 
 
 def decode_window(model, enc, mask, pack, beams, traced,
-                  quant: bool = True) -> Tuple[float, object]:
-    """The MarkushGrapher decode loop (greedy or beam search), over the
-    model's quantised KV and int8 weights, or (quant=False) float caches and
-    weights."""
+                  quant: bool = True, skip: Optional[int] = None,
+                  **beam_kw) -> Tuple[float, object]:
+    """The MarkushGrapher decode loop (greedy or beam search, with the
+    beam's self_seg / lattice), over the model's quantised KV and int8
+    weights, or (quant=False) float caches and weights."""
     from markushgrapher_torch.decode.generate import (beam_generate,
                                                       greedy_generate)
 
@@ -172,8 +210,8 @@ def decode_window(model, enc, mask, pack, beams, traced,
             greedy_generate(model, enc, mask, steps, **kw)
     else:
         def run():
-            beam_generate(model, enc, mask, steps, beams, **kw)
-    return step_window(model, "decode_step", run, traced)
+            beam_generate(model, enc, mask, steps, beams, **kw, **beam_kw)
+    return step_window(model, "decode_step", run, traced, skip)
 
 
 def encode_window(encode, traced) -> Tuple[float, object]:
@@ -201,8 +239,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stage", choices=("all", "mg", "ocr", "train"),
                     default="all")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated labels of PATHS to trace")
+    ap.add_argument("--batches", default=None,
+                    help="comma-separated batch sizes to trace")
     ap.add_argument("--out", default=None, help="write the windows as JSON")
     args = ap.parse_args(argv)
+    paths = select_paths(args.paths, args.batches)
     if not torch.cuda.is_available():
         sys.exit("trace_paths: no CUDA device")
     from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
@@ -232,7 +275,7 @@ def main(argv=None) -> None:
 
     with torch.no_grad():
         if args.stage in ("all", "mg"):
-            trace_mg(dev, mt, record)
+            trace_mg(dev, mt, record, paths)
         if args.stage in ("all", "ocr"):
             trace_ocr(dev, mt, record)
     if args.stage in ("all", "train"):
@@ -242,7 +285,7 @@ def main(argv=None) -> None:
             json.dump({"device": card, "windows": windows}, f, indent=1)
 
 
-def trace_mg(dev, mt, record) -> None:
+def trace_mg(dev, mt, record, paths=PATHS) -> None:
     import torch
 
     from markushgrapher_torch.config import MarkushGrapherConfig
@@ -256,7 +299,7 @@ def trace_mg(dev, mt, record) -> None:
         model = MarkushGrapherModel(cfg)
     model.init_weights(SEED)
     model.to(torch.bfloat16).eval()
-    for b in sorted({b for *_, sizes in PATHS for b in sizes}):
+    for b in sorted({b for _, _, _, sizes, _ in paths for b in sizes}):
         host = page_batch(cfg, b, SEED + b, mt)
         args = [torch.as_tensor(host[k], device=dev) for k in MODEL_INPUTS]
         mv = encoder_valid_max(cfg, args[1], args[2])
@@ -273,17 +316,21 @@ def trace_mg(dev, mt, record) -> None:
             record(f"encode {route} b{b}", wall, encode_window(encode, True),
                    1)
         enc, mask = model.clone(bias_int8=True).encode(*args)
-        for label, kv, beams, sizes in PATHS:
+        for label, kv, beams, sizes, opts in paths:
             if b not in sizes:
                 continue
-            scheme = model.clone(int4_cross=kv == "int4")
+            opts = dict(opts)
+            skip = opts.pop("skip", SKIP)
+            scheme = model.clone(int4_cross=kv == "int4",
+                                 block_skip=opts.pop("block_skip", False))
             quant = kv != "bf16"
             # predict.yaml sets no cross pack
             xp = pack if quant else None
-            wall, _ = decode_window(scheme, enc, mask, xp, beams, False, quant)
-            record(f"{label} b{b} decode steps {SKIP}-{SKIP + STEPS}", wall,
-                   decode_window(scheme, enc, mask, xp, beams, True, quant),
-                   STEPS)
+            wall, _ = decode_window(scheme, enc, mask, xp, beams, False, quant,
+                                    skip, **opts)
+            record(f"{label} b{b} decode steps {skip}-{skip + STEPS}", wall,
+                   decode_window(scheme, enc, mask, xp, beams, True, quant,
+                                 skip, **opts), STEPS)
 
 
 def trace_ocr(dev, mt, record) -> None:

@@ -159,13 +159,8 @@ def test_length_buckets_match_jax_and_guard_packs(tmp_path, caplog):
     assert evaluator(128).generate_batch(host).shape == (2, DEC)
 
 
-def test_cache_digest_follows_the_model_route_and_kv_scheme(tmp_path):
-    """The prediction cache is keyed on what the model runs: two runs into
-    one output_dir that differ only in the encoder route (bias_int8) keep
-    two cache files; the in-kernel and packed routes and the int4 / int8 KV
-    schemes key apart too; and an EvalConfig whose int4_cross disagrees
-    with the model's under quantised KV (the defaults: model int4, config
-    int8) is refused."""
+def _one_sample_setup():
+    """(cfg, tokenizer, one-sample dataset, collator) of the cache tests."""
     cfg = MarkushGrapherConfig(
         vtl=VTLConfig(vocab_size=33201, d_model=32, d_kv=4, d_ff=64,
                       num_layers=1, num_decoder_layers=1, num_heads=8,
@@ -177,7 +172,43 @@ def test_cache_digest_follows_the_model_route_and_kv_scheme(tmp_path):
     ds = MDUDataset(source=generate_dataset(1), markush_tokenizer=mt,
                     image_size=64, ocsr_image_size=16, max_seq_length=T,
                     max_seq_length_decoder=DEC)
-    collator = DataCollator(max_length=T, max_length_decoder=DEC)
+    return cfg, mt, ds, DataCollator(max_length=T, max_length_decoder=DEC)
+
+
+def test_cache_digest_follows_the_beam_rings(tmp_path):
+    """The quantised beam's copy-on-write segments and lattice move scores
+    at the bf16 level, and block_skip changes what the model reads: two
+    runs into one output_dir that differ only in `lattice` keep two cache
+    files, and segment sizes and block_skip key apart too. Under greedy
+    decode the beam's ring options change nothing and share one key."""
+    cfg, mt, ds, collator = _one_sample_setup()
+
+    def evaluator(num_beams=5, block_skip=False, **ring):
+        model = MarkushGrapherModel(cfg, int4_cross=True,
+                                    block_skip=block_skip)
+        return teval.Evaluator(model.init_weights(0), mt, teval.EvalConfig(
+            max_length=DEC, batch_size=1, bf16_params=False,
+            output_dir=str(tmp_path), quant_kv=True, quant_weights=True,
+            int4_cross=True, num_beams=num_beams, **ring))
+
+    for lattice in (False, True):
+        evaluator(self_seg=4, lattice=lattice).run(ds, collator)
+    assert len(list(tmp_path.glob("predictions_cache_eval_*.pkl"))) == 2
+    variants = (dict(self_seg=4), dict(self_seg=4, lattice=True),
+                dict(self_seg=2), dict(self_seg=0), dict(block_skip=True))
+    assert len({evaluator(**kw)._cache_digest() for kw in variants}) == 5
+    assert evaluator(num_beams=1, self_seg=4)._cache_digest() == \
+        evaluator(num_beams=1, self_seg=2, lattice=True)._cache_digest()
+
+
+def test_cache_digest_follows_the_model_route_and_kv_scheme(tmp_path):
+    """The prediction cache is keyed on what the model runs: two runs into
+    one output_dir that differ only in the encoder route (bias_int8) keep
+    two cache files; the in-kernel and packed routes and the int4 / int8 KV
+    schemes key apart too; and an EvalConfig whose int4_cross disagrees
+    with the model's under quantised KV (the defaults: model int4, config
+    int8) is refused."""
+    cfg, mt, ds, collator = _one_sample_setup()
 
     def evaluator(quant_kv=False, int4_cross=False, **flags):
         model = MarkushGrapherModel(cfg, int4_cross=int4_cross, **flags)

@@ -391,3 +391,171 @@ def test_flash_relbias_refuses_before_launch(dev):
         flash_relbias.flash_attention_relbias(q, q, q, hx, hx, mask,
                                               tab[:, :1], tab, tab)
     assert _build.LAUNCHES["flash_relbias"] == 0
+
+
+# -- row maps, valid prefixes, the lattice, normalize_u8 -----------------------
+
+
+def _ring(dev, rng, int4, rows, heads, d, ring, step, seg, poison=False):
+    """Self-ring operands: q [rows, heads, d] bf16, K/V [rows, ring, G*D]
+    (packed for int4) with per-head scales, the causal bias row (float32's
+    lowest past `step`, where the ring holds zeros, or garbage with
+    poison=True) and a random row map [rows, ring / seg]."""
+    top = 8 if int4 else 128
+    vals = rng.randint(1 - top, top, (2, rows, ring, heads * d))
+    sc = rng.rand(2, rows, heads, ring) * (0.2 if int4 else 0.02)
+    if poison:
+        vals[:, :, step + 1:] = top - 1
+        sc[:, :, :, step + 1:] = 1e9
+    else:
+        vals[:, :, step + 1:] = 0
+        sc[:, :, :, step + 1:] = 0
+    kv = [torch.tensor(v, dtype=torch.int8, device=dev) for v in vals]
+    if int4:
+        kv = [mxu_decode.pack_int4(t) for t in kv]
+    sdt = torch.bfloat16 if int4 else torch.float32
+    ks, vs = (torch.tensor(s_, device=dev).to(sdt) for s_ in sc)
+    q = torch.tensor(rng.randn(rows, heads, d), device=dev).to(torch.bfloat16)
+    bias = torch.full((1, heads, ring), torch.finfo(torch.float32).min,
+                      device=dev)
+    bias[..., :step + 1] = torch.tensor(rng.randn(1, heads, step + 1) * 0.5,
+                                        dtype=torch.float32, device=dev)
+    rm = torch.tensor(rng.randint(0, rows, (rows, ring // seg)),
+                      dtype=torch.int32, device=dev)
+    return q, kv[0], ks, kv[1], vs, bias, rm
+
+
+@pytest.mark.parametrize("int4", [True, False])
+@pytest.mark.parametrize("mode,seg", [("row_map", 128), ("prefix", 128),
+                                      ("row_map+prefix", 128),
+                                      ("row_map", 8), ("row_map+prefix", 512)])
+def test_decode_row_map_and_prefix(dev, int4, mode, seg):
+    """The row-mapped and valid-prefix forms of both decode kernels at the
+    beam-5 self-ring shape scaled down (40 rows, 16 heads of 64, ring
+    1024), against their plain versions: blocks of 8, 128 and 512 keys."""
+    rng = np.random.RandomState(seg + 2 * int4 + len(mode))
+    step = 700
+    args = _ring(dev, rng, int4, 40, 16, 64, 1024, step, seg)
+    kw = dict(block_k=seg)
+    if "row_map" in mode:
+        kw["row_map"] = args[-1]
+    if "prefix" in mode:
+        kw.update(mxu_decode.valid_prefix_blocks(1024, step, seg))
+    name = "decode_int4" if int4 else "decode_i8"
+    kernel, plain = ((mxu_decode.cross_decode_mxu_int4, mxu_decode.plain_int4)
+                     if int4 else
+                     (mxu_decode.cross_decode_mxu, mxu_decode.plain_int8))
+    _build.reset_launches()
+    got = kernel(*args[:-1], **kw)
+    assert _build.LAUNCHES[name] == 1
+    ref = plain(*args[:-1], **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def test_decode_int4_odd_groups_with_prefix(dev):
+    """The OCR ring's shape (15 query rows over 5 kv heads of 64, whose
+    head 2 straddles the nibble split) read up to its valid prefix in
+    blocks of 128."""
+    rng = np.random.RandomState(17)
+    B, R, G, d, K, step = 8, 15, 5, 64, 640, 300
+    vals = rng.randint(-7, 8, (2, B, K, G * d))
+    vals[:, :, step + 1:] = 0
+    kq, vq = (mxu_decode.pack_int4(torch.tensor(v, dtype=torch.int8,
+                                                device=dev)) for v in vals)
+    sc = rng.rand(2, B, G, K) * 0.2
+    sc[..., step + 1:] = 0
+    ks, vs = (torch.tensor(s_, device=dev).to(torch.bfloat16) for s_ in sc)
+    q = torch.tensor(rng.randn(B, R, d), device=dev).to(torch.bfloat16)
+    bias = torch.full((1, 1, K), torch.finfo(torch.float32).min, device=dev)
+    bias[..., :step + 1] = 0.0
+    kw = mxu_decode.valid_prefix_blocks(K, step, 128)
+    got = mxu_decode.cross_decode_mxu_int4(q, kq, ks, vq, vs, bias, **kw)
+    ref = mxu_decode.plain_int4(q, kq, ks, vq, vs, bias, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("seg,n_live", [(128, 1), (128, 2), (128, 4),
+                                        (8, 37), (512, 2)])
+def test_lattice_matches_plain_and_row_mapped_decode(dev, seg, n_live):
+    """lattice_self_int4 at the beam-5 b8 self-ring shape (40 rows, 16
+    heads of 64, ring 512 or 1024) against its plain version and against
+    the row-mapped decode_int4 kernel over the whole ring (segments of 512
+    take more than 48 KB of shared memory)."""
+    ring = 1024 if seg == 512 else 512
+    step = n_live * seg - 1 - seg // 3
+    rng = np.random.RandomState(seg + n_live)
+    *args, rm = _ring(dev, rng, True, 40, 16, 64, ring, step, seg)
+    _build.reset_launches()
+    got = mxu_decode.lattice_self_int4(*args, rm, n_live, seg)
+    assert _build.LAUNCHES["lattice_self_int4"] == 1
+    ref = mxu_decode.plain_lattice_int4(*args, rm, n_live, seg)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+    whole = mxu_decode.cross_decode_mxu_int4(*args, row_map=rm, block_k=seg)
+    torch.testing.assert_close(got.float(), whole.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def test_lattice_never_reads_dead_segments(dev):
+    """Garbage values and 1e9 scales in the segments past n_live leave the
+    kernel's output unchanged bit for bit (they are never read)."""
+    rng = np.random.RandomState(23)
+    *clean, rm = _ring(dev, rng, True, 40, 16, 64, 512, 255, 128)
+    rng = np.random.RandomState(23)
+    *bad, _ = _ring(dev, rng, True, 40, 16, 64, 512, 255, 128, poison=True)
+    a = mxu_decode.lattice_self_int4(*clean, rm, 2, 128)
+    b = mxu_decode.lattice_self_int4(*bad, rm, 2, 128)
+    assert torch.equal(a, b)
+
+
+def test_lattice_and_row_map_refuse_before_launch(dev):
+    """An odd kv-head count (a head across the nibble split), an odd
+    segment, n_live past the ring, and a row map on the CPU are refused
+    before any launch."""
+    rng = np.random.RandomState(29)
+    *args, rm = _ring(dev, rng, True, 4, 16, 64, 512, 300, 128)
+    _build.reset_launches()
+    odd = mxu_decode.pack_int4(torch.zeros((4, 512, 5 * 64),
+                                           dtype=torch.int8, device=dev))
+    osc = torch.zeros((4, 5, 512), dtype=torch.bfloat16, device=dev)
+    q5 = torch.zeros((4, 15, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="G even"):
+        mxu_decode.lattice_self_int4(q5, odd, osc, odd, osc, args[-1][:, :1],
+                                     rm, 1, 128)
+    with pytest.raises(ValueError, match="n_live"):
+        mxu_decode.lattice_self_int4(*args, rm, 5, 128)
+    with pytest.raises(ValueError, match="row_map"):
+        mxu_decode.lattice_self_int4(*args, rm[:, :2], 1, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        mxu_decode.cross_decode_mxu_int4(*args, row_map=rm.cpu(),
+                                         block_k=128)
+    assert _build.LAUNCHES["lattice_self_int4"] == 0
+    assert _build.LAUNCHES["decode_int4"] == 0
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_normalize_u8_bit_exact(dev, out_dtype):
+    """normalize_u8 against its plain version bit for bit: an OCR page
+    batch, a ragged size (the scalar tail), a view at a 1-byte offset (the
+    byte-at-a-time path), and ImageNet's mean / std."""
+    from markushgrapher_torch.ops import preprocess
+
+    rng = np.random.RandomState(31)
+    pages = torch.tensor(rng.randint(0, 256, (8, 512, 512, 3)),
+                         dtype=torch.uint8, device=dev)
+    flat = torch.tensor(rng.randint(0, 256, 1001), dtype=torch.uint8,
+                        device=dev)
+    for x, mean, std in ((pages, 0.5, 0.5), (flat[:999], 0.5, 0.5),
+                         (flat[1:], 0.485, 0.229)):
+        _build.reset_launches()
+        got = preprocess.normalize_u8(x, mean, std, out_dtype)
+        assert _build.LAUNCHES["normalize_u8"] == 1
+        ref = preprocess.plain_normalize_u8(x, mean, std, out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, ref)
+    img = pages[:2]
+    for pool in (1, 2):
+        assert torch.equal(
+            preprocess.preprocess_patchify(img, pool=pool),
+            preprocess.preprocess_patchify_reference(img, pool=pool))

@@ -220,3 +220,184 @@ def test_decode_int4_head_map_plain_vs_jax_kernel():
             torch.from_numpy(bias), head_map=head_map)
         np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0)
     assert _build.LAUNCHES["decode_int4"] == 0
+
+
+# -- copy-on-write row maps, valid prefixes, the lattice, normalize_u8 --------
+
+SEG = 128
+
+
+def _ring_case(rng, int4, B=4, H=8, D=8, K=512, step=None):
+    """Self-ring operands of the decode kernels: q [B, H, D], K/V [B, K,
+    H*D] (packed for int4) with per-row scales [B, H, K] (bf16 for int4),
+    a per-head bias row with the causal tail at float32's lowest past
+    `step` (the ring there holds zeros), and a random row map [B, K /
+    SEG]."""
+    top = 8 if int4 else 128
+    q = rng.randn(B, H, D).astype(np.float32)
+    kv = [rng.randint(1 - top, top, (B, K, H * D)).astype(np.int8)
+          for _ in "kv"]
+    sc = [(rng.rand(B, H, K) * (0.3 if int4 else 0.02)).astype(np.float32)
+          for _ in "kv"]
+    bias = (rng.randn(1, H, K) * 0.5).astype(np.float32)
+    if step is not None:
+        bias[:, :, step + 1:] = np.finfo(np.float32).min
+        for t, s_ in zip(kv, sc):
+            t[:, step + 1:] = 0
+            s_[:, :, step + 1:] = 0.0
+    if int4:
+        kv = [np.array(jdec.pack_int4(jnp.asarray(t))) for t in kv]
+        sc = [np.asarray(jnp.asarray(s_, jnp.bfloat16), np.float32)
+              for s_ in sc]
+    rm = rng.randint(0, B, (B, K // SEG)).astype(np.int32)
+    return q, kv, sc, bias, rm
+
+
+def _jax_decode(int4, q, kv, sc, bias, **kw):
+    fn = jdec.cross_decode_mxu_int4 if int4 else jdec.cross_decode_mxu
+    sdt = jnp.bfloat16 if int4 else jnp.float32
+    return np.asarray(fn(jnp.asarray(q), jnp.asarray(kv[0]),
+                         jnp.asarray(sc[0], sdt), jnp.asarray(kv[1]),
+                         jnp.asarray(sc[1], sdt), jnp.asarray(bias), **kw))
+
+
+def _torch_decode(int4, q, kv, sc, bias, **kw):
+    fn = tdec.cross_decode_mxu_int4 if int4 else tdec.cross_decode_mxu
+    sdt = torch.bfloat16 if int4 else torch.float32
+    return fn(torch.from_numpy(q), torch.from_numpy(kv[0]),
+              torch.from_numpy(sc[0]).to(sdt), torch.from_numpy(kv[1]),
+              torch.from_numpy(sc[1]).to(sdt), torch.from_numpy(bias),
+              **kw).numpy()
+
+
+def _close(int4, got, want):
+    """int8: within one bf16 ulp of each output; int4: atol 2e-2 (both as
+    test_decode_plain_vs_jax_kernel / test_decode_i8_plain_vs_jax_kernel)."""
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    if int4:
+        np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    else:
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all(), \
+            np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("mode", ["row_map", "prefix", "row_map+prefix"])
+def test_decode_row_map_and_prefix_plain_vs_jax_kernel(int4, mode):
+    """The plain decode with a random row map (B=4, K=512, segments of
+    128), with the valid prefix (the JAX `block_map` of
+    `valid_prefix_blocks` at step 300: blocks 3.. redirected, here not
+    read), and with both composed, against the JAX kernel in interpret
+    mode; the online softmax runs over the 128-key blocks on both sides.
+    The wrapper's CPU dispatch goes to the plain version."""
+    step = 300
+    q, kv, sc, bias, rm = _ring_case(np.random.RandomState(7), int4,
+                                     step=step)
+    jkw, tkw = dict(block_k=SEG), dict(block_k=SEG)
+    if "row_map" in mode:
+        jkw["row_map"], tkw["row_map"] = jnp.asarray(rm), torch.from_numpy(rm)
+    if "prefix" in mode:
+        jkw.update(jdec.valid_prefix_blocks(512, step, SEG))
+        tkw.update(tdec.valid_prefix_blocks(512, step, SEG))
+        assert tkw["live_keys"] == 384
+    want = _jax_decode(int4, q, kv, sc, bias, **jkw)
+    _build.reset_launches()
+    _close(int4, _torch_decode(int4, q, kv, sc, bias, **tkw), want)
+    assert _build.LAUNCHES["decode_int4" if int4 else "decode_i8"] == 0
+
+
+@pytest.mark.parametrize("n_live", [1, 2, 4])
+def test_lattice_plain_vs_jax_kernel(n_live):
+    """plain_lattice_int4 (and the wrapper's CPU dispatch) against the JAX
+    `lattice_self_int4` in interpret mode: the first n_live segments of
+    128, each read through the row map, the rest masked by the bias; the
+    row-mapped plain int4 decode over the whole ring gives the same bits."""
+    step = n_live * SEG - 1
+    q, kv, sc, bias, rm = _ring_case(np.random.RandomState(8), True,
+                                     step=step)
+    want = np.asarray(jdec.lattice_self_int4(
+        jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(sc[0], jnp.bfloat16),
+        jnp.asarray(kv[1]), jnp.asarray(sc[1], jnp.bfloat16),
+        jnp.asarray(bias), jnp.asarray(rm), n_live, seg=SEG))
+    args = (torch.from_numpy(q), torch.from_numpy(kv[0]),
+            torch.from_numpy(sc[0]).to(torch.bfloat16),
+            torch.from_numpy(kv[1]),
+            torch.from_numpy(sc[1]).to(torch.bfloat16),
+            torch.from_numpy(bias))
+    _build.reset_launches()
+    got = tdec.lattice_self_int4(*args, torch.from_numpy(rm), n_live,
+                                 SEG).numpy()
+    assert _build.LAUNCHES["lattice_self_int4"] == 0
+    _close(True, got, want)
+    whole = tdec.plain_int4(*args, row_map=torch.from_numpy(rm),
+                            block_k=SEG).numpy()
+    np.testing.assert_array_equal(got, whole)
+
+
+def test_lattice_never_reads_dead_segments():
+    """Poisoned scales and values in the segments at or past n_live (as
+    tests/test_mxu_decode.py poisons the JAX kernel's) leave the plain
+    lattice's output unchanged, bit for bit."""
+    q, kv, sc, bias, rm = _ring_case(np.random.RandomState(9), True)
+    bias[:, :, 2 * SEG:] = -1e9
+    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa
+
+    def run(kv, sc):
+        return tdec.plain_lattice_int4(
+            to_t(q), to_t(kv[0]), to_t(sc[0]).to(torch.bfloat16),
+            to_t(kv[1]), to_t(sc[1]).to(torch.bfloat16), to_t(bias),
+            to_t(rm), 2, SEG).numpy()
+
+    clean = run(kv, sc)
+    bad_kv = [t.copy() for t in kv]
+    bad_sc = [s_.copy() for s_ in sc]
+    for t, s_ in zip(bad_kv, bad_sc):
+        t[:, 2 * SEG:] = 0x77
+        s_[:, :, 2 * SEG:] = 1e9
+    np.testing.assert_array_equal(run(bad_kv, bad_sc), clean)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_normalize_u8_bit_equal_to_jax(out_dtype):
+    """normalize_u8 (the wrapper's CPU dispatch: the plain version) equals
+    the JAX Pallas kernel in interpret mode bit for bit, over every uint8
+    value and a ragged [2, 24, 40, 3] batch."""
+    from markushgrapher_tpu.ops import preprocess as jpre
+    from markushgrapher_torch.ops import preprocess as tpre
+
+    rng = np.random.RandomState(10)
+    img = rng.randint(0, 256, (2, 24, 40, 3)).astype(np.uint8)
+    img[0, 0, :, :].flat[:] = np.arange(120) % 256
+    img[0, 1, :, :].flat[:] = np.arange(120, 240) % 256
+    img[0, 2, :, :].flat[:] = np.arange(240, 360) % 256
+    for mean, std in ((0.5, 0.5), (0.485, 0.229)):
+        want = np.asarray(jpre.normalize_u8(
+            jnp.asarray(img), mean=mean, std=std,
+            out_dtype=getattr(jnp, out_dtype)), np.float32)
+        _build.reset_launches()
+        got = tpre.normalize_u8(torch.from_numpy(img), mean=mean, std=std,
+                                out_dtype=getattr(torch, out_dtype))
+        assert _build.LAUNCHES["normalize_u8"] == 0
+        assert got.dtype == getattr(torch, out_dtype)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("pool", [1, 2])
+def test_preprocess_patchify_bit_equal_to_jax(pool):
+    """preprocess_patchify and its reference against the JAX ones (pool 1
+    and 2, patch 8, bf16 and float32 out): bit for bit."""
+    from markushgrapher_tpu.ops import preprocess as jpre
+    from markushgrapher_torch.ops import preprocess as tpre
+
+    img = np.random.RandomState(11).randint(0, 256, (2, 32, 48, 3)).astype(
+        np.uint8)
+    for name in ("float32", "bfloat16"):
+        want = np.asarray(jpre.preprocess_patchify(
+            jnp.asarray(img), patch=8, pool=pool,
+            out_dtype=getattr(jnp, name)), np.float32)
+        for fn in (tpre.preprocess_patchify,
+                   tpre.preprocess_patchify_reference):
+            got = fn(torch.from_numpy(img), patch=8, pool=pool,
+                     out_dtype=getattr(torch, name))
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got.float().numpy(), want)

@@ -66,3 +66,46 @@ def test_union_and_kinds():
     assert tp.kind_of("nvjet_tst_64x8_64x16_4x1_v_bz_TNT") == "GEMM"
     assert tp.kind_of("vectorized_elementwise_kernel<4>") == \
         "elementwise / other"
+
+
+@pytest.mark.parametrize("opts", [dict(self_seg=4), dict(lattice=True),
+                                  dict(block_skip=True)])
+def test_decode_window_takes_the_ring_options(encoded, monkeypatch, opts):
+    """The copy-on-write, lattice and block_skip windows: the beam's
+    self_seg / lattice reach beam_generate (a row map from step 0, at
+    four segments of 4), block_skip the model, and the window runs from
+    its own first step."""
+    model, enc, mask, pack = encoded
+    monkeypatch.setattr(tp, "STEPS", 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    opts = dict(opts)
+    scheme = model.clone(block_skip=opts.pop("block_skip", False))
+    if "lattice" in opts:
+        opts["self_seg"] = 4
+    seen = []
+    inner = scheme.decode_step
+
+    def counted(tok, caches, step, *args, **kw):
+        seen.append((step, args[3] is not None if len(args) > 3 else None))
+        return inner(tok, caches, step, *args, **kw)
+
+    monkeypatch.setattr(scheme, "decode_step", counted)
+    beams = 1 if scheme.block_skip else 5
+    wall, _ = tp.decode_window(scheme, enc, mask, pack, beams, False,
+                               skip=5, **opts)
+    assert [s for s, _ in seen] == list(range(7)) and wall > 0
+    if beams == 5:
+        assert all(mapped for _, mapped in seen)
+
+
+def test_select_paths_cuts_labels_and_batches():
+    """--paths keeps every window of a label (early and late), --batches
+    the batch sizes; an unknown label is refused."""
+    got = tp.select_paths("beam-5 int4 lattice,greedy int4", "8")
+    assert {p[0] for p in got} == {"beam-5 int4 lattice", "greedy int4"}
+    assert all(p[3] == (8,) for p in got)
+    assert sorted(p[4].get("skip", tp.SKIP) for p in got
+                  if p[0] == "greedy int4") == [tp.SKIP, 300]
+    assert tp.select_paths() == tp.PATHS
+    with pytest.raises(ValueError, match="not a label"):
+        tp.select_paths("greedy int5")

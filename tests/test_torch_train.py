@@ -445,14 +445,11 @@ def test_weight_export_and_fingerprints(tmp_path):
                                      str(tmp_path / "w" / "decoder.pt"))
 
 
-def test_train_main_on_cpu_writes_checkpoint(tmp_path):
-    """train_main on a tiny synthetic dataset saved to disk (as
-    tests/test_pipeline.py builds one), device="cpu": 2 steps, then
-    checkpoint-2 and the result files."""
+def _tiny_train_yaml(tmp_path):
+    """(YAML path, output_dir) of train_main on a tiny synthetic dataset
+    saved to disk (as tests/test_pipeline.py builds one): 2 steps."""
     import datasets as hfds
     import yaml
-
-    from markushgrapher_torch import train_main
 
     annot = ("<markush><cxsmi>CC(<r>R1</r>)c1ccc(O)cc1</cxsmi>"
              "<stable>R1:F<n>Cl</stable></markush>")
@@ -487,6 +484,15 @@ def test_train_main_on_cpu_writes_checkpoint(tmp_path):
                architecture_variant="none", freeze_molscribe_encoder=False)
     path = tmp_path / "train.yaml"
     yaml.safe_dump(cfg, path.open("w"))
+    return path, out
+
+
+def test_train_main_on_cpu_writes_checkpoint(tmp_path):
+    """train_main on a tiny synthetic dataset, device="cpu": 2 steps, then
+    checkpoint-2 and the result files."""
+    from markushgrapher_torch import train_main
+
+    path, out = _tiny_train_yaml(tmp_path)
     last = train_main.main(str(path), device="cpu")
     assert last["step"] == 2 and np.isfinite(last["loss"])
     assert os.path.isfile(out / "checkpoint-2" / "state")
@@ -495,28 +501,63 @@ def test_train_main_on_cpu_writes_checkpoint(tmp_path):
     assert (out / "metrics.jsonl").read_text().count("\n") == 2
 
 
+def test_eval_main_scores_the_train_main_checkpoint(tmp_path, monkeypatch):
+    """train_main for 2 steps, then eval_main on the same YAML and
+    output_dir (no model_name_or_path): as the reference's, it restores the
+    last checkpoint there, so the model it scores holds the checkpoint's
+    tensors (cast to the evaluator's bf16), not the random init."""
+    from markushgrapher_torch import eval_main, train_main
+    from markushgrapher_torch.train.checkpoint import Checkpointer
+
+    path, out = _tiny_train_yaml(tmp_path)
+    train_main.main(str(path), device="cpu")
+    scored = []
+
+    class Capture(eval_main.Evaluator):
+        def __init__(self, model, *args, **kw):
+            super().__init__(model, *args, **kw)
+            scored.append(self.model)
+
+    monkeypatch.setattr(eval_main, "Evaluator", Capture)
+    scores = eval_main.main(str(path), device="cpu")
+    assert scores and len(scored) == 1
+    saved = Checkpointer(str(out)).restore_params(str(out / "checkpoint-2"))
+    got = scored[0].state_dict()
+    assert set(got) == set(saved)
+    for name, t in saved.items():
+        assert torch.equal(got[name], t.to(got[name].dtype)), name
+    fresh = tmg.MarkushGrapherModel(scored[0].cfg).init_weights(seed=0)
+    assert not torch.equal(fresh.state_dict()["lm_head.weight"].to(
+        torch.bfloat16), got["lm_head.weight"])
+
+
 # -- learning end to end --------------------------------------------------------
 
 
-def test_overfit_then_greedy_int8_reproduces_samples():
+# the thread count of the overfit run (with deterministic algorithms, the
+# run is then the same in every process)
+OVERFIT_THREADS = 4
+
+
+@pytest.fixture(scope="module")
+def overfit():
     """tests/test_learning.py::TestEndToEndLearning through the port: the
     same tiny config, corpus (2 unique synthetic samples, duplicated to a
     batch of 4) and initial weights (the JAX model's init at PRNGKey(0),
     through the weight bridge), trained by the port's Trainer in float32
-    until the loss is below 1e-3 (800-step cap, must reach < 0.05); then
-    greedy decode under the serving scheme (int8 KV, int8 weights)
-    reproduces both samples exactly (CXSMILES equality). The rate decays
-    linearly to 0 over the cap: at the reference test's constant 5e-3 Adam
-    is chaotic here, and the float summation order (the CPU thread count)
-    decided whether a run settled within 800 steps; stopping at 0.01 left
-    one token wrong in some runs. Measured with 1, 2, 4, 6 and 8 threads:
-    167-398 steps, all exact."""
-    from markushgrapher_torch.chem.evaluation import score_sample
+    until the loss is below 1e-3 (800-step cap). The rate decays linearly
+    to 0 over the cap: at the reference test's constant 5e-3 Adam is
+    chaotic here. The run is made deterministic while it trains: a fixed
+    thread count and `torch.use_deterministic_algorithms`, both restored
+    afterwards. Without them two runs at one thread count part after a few
+    steps: the backward of the relative-bias gather (`table[buckets]`, an
+    accumulating `index_put_` of 50k entries into a 32-row table) adds in
+    an order that changes from run to run, and some runs did not settle
+    within 800 steps (final loss 0.059)."""
     from markushgrapher_torch.data.collator import DataCollator
     from markushgrapher_torch.data.dataset import MDUDataset
     from markushgrapher_torch.data.markush_tokenizer import MarkushTokenizer
     from markushgrapher_torch.data.synthetic import SyntheticMarkushGenerator
-    from markushgrapher_torch.decode.generate import generate
 
     gen = SyntheticMarkushGenerator(seed=3, image_size=64, max_rgroups=1,
                                     p_m_section=0.0, p_sg_section=0.0)
@@ -544,26 +585,66 @@ def test_overfit_then_greedy_int8_reproduces_samples():
                          gradient_accumulation_steps=1, max_grad_norm=1.0,
                          dtype="float32", remat=False))
     _, init = jax_params(cfg, batch)
-    state = trainer.init_state(
-        params=params_from_jax(jax.tree.map(np.asarray, init)))
-    loss = None
-    for _ in range(800):
-        state, m = trainer.train_step(state, batch)
-        loss = float(m["loss"])
-        if loss < 1e-3:
-            break
-    assert loss < 0.05, f"did not overfit: final loss {loss}"
-
-    model = state.params.eval()
-    model.int4_cross = False
+    threads = torch.get_num_threads()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.set_num_threads(OVERFIT_THREADS)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = trainer.init_state(
+            params=params_from_jax(jax.tree.map(np.asarray, init)))
+        loss = None
+        for _ in range(800):
+            state, m = trainer.train_step(state, batch)
+            loss = float(m["loss"])
+            if loss < 1e-3:
+                break
+    finally:
+        torch.set_num_threads(threads)
+        torch.use_deterministic_algorithms(deterministic)
     inputs = {k: torch.as_tensor(batch[k]) for k in
               ("input_ids", "bbox", "attention_mask", "pixel_values")}
-    out = generate(model, inputs, max_length=64, eos_id=1,
-                   quant_cross_kv=True, quant_weights=True).numpy()
+    return dict(model=state.params.eval(), loss=loss, inputs=inputs,
+                samples=samples[:2], mt=mt)
+
+
+def _exact_matches(overfit, kv: str, weights: str) -> int:
+    """Greedy decode of the overfit model under a KV scheme ("float",
+    "int8", "int4") and decode weights ("float", "int8"): how many of the
+    two samples come out CXSMILES-equal."""
+    from markushgrapher_torch.chem.evaluation import score_sample
+    from markushgrapher_torch.decode.generate import generate
+
+    mt = overfit["mt"]
+    model = overfit["model"].clone(int4_cross=kv == "int4")
+    out = generate(model, overfit["inputs"], max_length=64, eos_id=1,
+                   quant_cross_kv=kv != "float",
+                   quant_weights=weights == "int8").numpy()
     exact = 0
-    for i, sample in enumerate(samples[:2]):
-        text = mt.decode(out[i])
+    for i, sample in enumerate(overfit["samples"]):
         gt_stable = mt.get_stable(sample["annotation"]) or {}
-        exact += bool(score_sample(text, sample["cxsmiles_opt"], gt_stable,
-                                   mt)["markush_equality"])
-    assert exact == 2, mt.decode(out[0])
+        exact += bool(score_sample(mt.decode(out[i]), sample["cxsmiles_opt"],
+                                   gt_stable, mt)["markush_equality"])
+    return exact
+
+
+def test_overfit_then_greedy_int8_reproduces_samples(overfit):
+    """The overfit run (fixture) reaches a loss below 0.05 within its
+    800-step cap; greedy decode under the serving scheme (int8 KV, int8
+    weights) then reproduces both samples exactly (CXSMILES equality)."""
+    assert overfit["loss"] < 0.05, \
+        f"did not overfit: final loss {overfit['loss']}"
+    assert _exact_matches(overfit, "int8", "int8") == 2
+
+
+@pytest.mark.parametrize("kv,weights", [("float", "float"),
+                                        ("int8", "float"),
+                                        ("int4", "int8")])
+def test_overfit_quantisation_gate(overfit, kv, weights):
+    """tests/test_learning.py::TestQuantizationGate through the port: the
+    float32 decode (float KV, float weights) reproduces both samples, and
+    every quantised serving mode (int8 KV with float or int8 weights, the
+    latter in the test above; int4 KV with int8 weights) keeps at least
+    its exact matches."""
+    baseline = _exact_matches(overfit, "float", "float")
+    assert baseline == 2
+    assert _exact_matches(overfit, kv, weights) >= baseline
