@@ -11,20 +11,25 @@ prints no result):
 1. device: requires CUDA (no CPU fallback); prints torch / CUDA versions and
    the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
-   for sm_90a, one nvcc per source, all at once;
+   for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
+   spills and static shared memory of the two wgmma encoder forwards;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
-   989 TFLOP/s bf16, whichever is larger) and, where one PyTorch call
-   computes the same function, that call's time. flash_relbias (the bias
+   989 TFLOP/s bf16, whichever is larger) and the share of the bound it
+   reaches, and, where one PyTorch call computes the same function, that
+   call's time and the kernel's ratio to it. flash_i8 over the int8 slab
+   at B=2 and at the serving batch B=8, L=1536, H=16, D=64, 25 % of the
+   keys masked, against SDPA with the dequantised bias and mask as a bf16
+   attn_mask. flash_relbias (the bias
    computed in the kernel) at B=2 and B=8, L=1536, H=16, D=64, bf16, with
    padded keys: no PyTorch call builds the relative bias, so its library
    time is none (SDPA over a prebuilt bf16 slab is printed for scale).
    The OCR shapes: the
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
    p = L0 + 400; decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv
-   heads) over that ring. The float-bias flash forward at its serving shape
-   (B=2) and forward + both backward kernels at the training shape (B=8),
+   heads) over that ring. The float-bias flash forward at its serving shapes
+   (B=2, B=8) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
    SDPA with the bias as attn_mask as the library yardstick. The beam-5
    self ring (40 rows, ring 512) as copy-on-write segments of 128 with a
@@ -134,6 +139,9 @@ KERNELS = {
 # the first CHECKED_STEPS decode steps
 DECODE_KERNELS = ("decode_int4", "decode_i8", "lattice_self_int4")
 FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
+# the kernel symbols of the two wgmma encoder forwards (flash_fwd_sm90.cuh),
+# whose ptxas register, spill and shared-memory report phase 2 prints
+FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -234,6 +242,24 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def ptxas_usage(log: str, keys) -> list:
+    """[(entry function, its registers, spills and static shared memory)]
+    from `nvcc -Xptxas -v` output, for the entry functions whose mangled
+    name contains one of `keys`."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            sym = ln.split("'")[1]
+            name = next((sym for k in keys if k in sym), None)
+            spill = ""
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln:
+            out.append((name, f"{ln.split(':', 1)[1].strip()}; {spill}"))
+            name = None
+    return out
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Device ms per call of fn. A sleep kernel queued ahead of the timed
     calls outlasts their host time (measured on the warm-up calls, with the
@@ -314,11 +340,15 @@ def decode_run(name, kernel, plain, args, kw, iters=50) -> dict:
 
 
 def report(name: str, shape: str, res: dict) -> None:
+    """A kernel's line: error, times, its bound and the share of the bound
+    it reaches, and its ratio to the library call where there is one."""
     lib = res.get("library_ms")
+    ratio = "" if lib is None else f" (kernel {res['ms'] / lib:.2f}x)"
     print(f"{name:<12} {shape}: max abs err {res['max_abs_err']:.3e}; kernel "
           f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), library "
-          f"{'none' if lib is None else f'{lib:.4f} ms'}", flush=True)
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}; "
+          f"{res['bound_ms'] / res['ms']:.1%} of it reached), library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}{ratio}", flush=True)
 
 
 def check_kernels(dev, pack: int) -> dict:
@@ -358,33 +388,40 @@ def check_kernels(dev, pack: int) -> dict:
     report("bias_build_i8", f"B={B} H={H} L={L} (bit-exact)",
            out["bias_build_i8"])
 
-    # K2: flash over the int8 slab, bf16 q/k/v, 25 % of keys padded. Its
-    # library yardstick: SDPA with the dequantised bias plus the key mask
-    # as a bf16 attn_mask and scale 1 (both made outside the timing)
+    # K2: flash over the int8 slab, bf16 q/k/v, 25 % of keys padded, at
+    # B=2 (the headline) and at the serving batch B=8 (the slab repeated,
+    # fresh q/k/v). Its library yardstick: SDPA with the dequantised bias
+    # plus the key mask as a bf16 attn_mask and scale 1 (both made outside
+    # the timing)
     D = 64
-    q, k, v = (torch.tensor(rng.randn(B, L, H, D).astype(np.float32) * sc,
-                            device=dev).to(torch.bfloat16)
-               for sc in (0.3, 0.3, 1.0))
     scales = torch.tensor(rng.rand(H).astype(np.float32) * 0.05, device=dev)
-    kmask = torch.ones((B, L), dtype=torch.int32, device=dev)
-    kmask[:, int(L * 0.75):] = 0
-    fargs = (q, k, v, got, scales, kmask)
-    f_got = flash_attention.flash_attention_bias_i8(*fargs)
-    f_ref = flash_attention.plain(*fargs)
-    torch.cuda.synchronize()
-    attn_mask = (got.float() * scales[None, :, None, None] + torch.where(
-        kmask[:, None, None, :] > 0, 0.0, -1e30)).to(torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out["flash_i8"] = dict(
-        max_abs_err=within("flash_i8", f_got, f_ref),
-        ms=cuda_ms(lambda: flash_attention.flash_attention_bias_i8(*fargs)),
-        plain_ms=cuda_ms(lambda: flash_attention.plain(*fargs)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask, scale=1.0)),
-        **bound(nbytes(q, k, v, got, scales, kmask, f_got),
-                4 * B * H * L * L * D))
-    report("flash_i8", f"B={B} H={H} L={L} D={D}", out["flash_i8"])
-    del attn_mask, qt, kt, vt
+    for fb, frng in ((B, rng), (4 * B, np.random.RandomState(SEED + 7))):
+        q, k, v = (torch.tensor(frng.randn(fb, L, H, D).astype(np.float32)
+                                * sc, device=dev).to(torch.bfloat16)
+                   for sc in (0.3, 0.3, 1.0))
+        slab = got if fb == B else got.repeat(fb // B, 1, 1, 1)
+        kmask = torch.ones((fb, L), dtype=torch.int32, device=dev)
+        kmask[:, int(L * 0.75):] = 0
+        fargs = (q, k, v, slab, scales, kmask)
+        f_got = flash_attention.flash_attention_bias_i8(*fargs)
+        f_ref = flash_attention.plain(*fargs)
+        torch.cuda.synchronize()
+        attn_mask = (slab.float() * scales[None, :, None, None] + torch.where(
+            kmask[:, None, None, :] > 0, 0.0, -1e30)).to(torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        res = dict(
+            max_abs_err=within("flash_i8", f_got, f_ref),
+            ms=cuda_ms(lambda: flash_attention.flash_attention_bias_i8(
+                *fargs)),
+            plain_ms=cuda_ms(lambda: flash_attention.plain(*fargs)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn_mask, scale=1.0)),
+            **bound(nbytes(q, k, v, slab, scales, kmask, f_got),
+                    4 * fb * H * L * L * D))
+        report("flash_i8", f"B={fb} H={H} L={L} D={D}", res)
+        if fb == B:
+            out["flash_i8"] = res
+        del attn_mask, qt, kt, vt, f_got, f_ref, slab
 
     # K3 / K4: decode attention over int4 values [-7, 7] or int8 values
     # [-127, 127]; padding keys (and the ring's unwritten tail) have zero
@@ -564,9 +601,9 @@ def flash_bias_inputs(dev, batch: int, seed: int):
 
 def check_flash_bias(dev) -> dict:
     """The float-bias flash kernels against their plain versions: the
-    forward at row 3's serving shape (B=2) and forward + both backward
-    kernels at the training shape (B=8), both L=1536, H=16, D=64, bf16
-    bias. Library yardstick: SDPA with the bias as attn_mask and scale 1,
+    forward at row 3's serving shapes (B=2 and B=8) and forward + both
+    backward kernels at the training shape (B=8), all L=1536, H=16, D=64,
+    bf16 bias. Library yardstick: SDPA with the bias as attn_mask and scale 1,
     forward, and forward + backward with a grad-requiring mask (its backward
     computes dq, dk, dv and d(mask) in one; reported for both backward
     kernels). Returns the training shape's rows."""
@@ -576,19 +613,24 @@ def check_flash_bias(dev) -> dict:
     from markushgrapher_torch.ops import flash_attention as fa
 
     H, L, D = 16, 1536, 64
-    q, k, v, bias, _ = flash_bias_inputs(dev, 2, SEED + 5)
-    got = fa.flash_attention_bias(q, k, v, bias)
-    ref = fa.plain_bias(q, k, v, bias)
-    torch.cuda.synchronize()
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    report("flash_bias", f"row 3 serving B=2 H={H} L={L} D={D} bf16 bias",
-           dict(max_abs_err=within("flash_bias", got, ref),
-                ms=cuda_ms(lambda: fa.flash_attention_bias(q, k, v, bias)),
-                plain_ms=cuda_ms(lambda: fa.plain_bias(q, k, v, bias), 5, 1),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=bias, scale=1.0)),
-                **bound(nbytes(q, k, v, bias, got), 4 * 2 * H * L * L * D)))
-    del q, k, v, bias, got, ref, qt, kt, vt
+    for sb, seed in ((2, SEED + 5), (TRAIN_BATCH, SEED + 8)):
+        q, k, v, bias, _ = flash_bias_inputs(dev, sb, seed)
+        got = fa.flash_attention_bias(q, k, v, bias)
+        ref = fa.plain_bias(q, k, v, bias)
+        torch.cuda.synchronize()
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        report("flash_bias", f"row 3 serving B={sb} H={H} L={L} D={D} bf16 "
+               f"bias",
+               dict(max_abs_err=within("flash_bias", got, ref),
+                    ms=cuda_ms(lambda: fa.flash_attention_bias(q, k, v,
+                                                               bias)),
+                    plain_ms=cuda_ms(lambda: fa.plain_bias(q, k, v, bias), 5,
+                                     1),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=bias, scale=1.0)),
+                    **bound(nbytes(q, k, v, bias, got),
+                            4 * sb * H * L * L * D)))
+        del q, k, v, bias, got, ref, qt, kt, vt
 
     B = TRAIN_BATCH
     q, k, v, bias, do = flash_bias_inputs(dev, B, SEED + 6)
@@ -1485,11 +1527,13 @@ def main() -> None:
     # phase 2: build
     phase(2)
     _build.lib()
-    ptxas = [ln.strip() for ln in
-             str(_build.build_info.get("ptxas", "")).splitlines()
+    log = str(_build.build_info.get("ptxas", ""))
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {_build.build_info['seconds']:.1f} s "
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
+    for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS):
+        print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
     phase(3)

@@ -1,9 +1,8 @@
-// Shared pieces of the float-bias flash attention kernels (flash_bias.cu,
-// flash_bias_bwd.cu): 64-row tiles of a [B, L, H, 64] bf16 tensor staged in
-// shared memory, bias reads, and the 64 x 64 x 64 tile products on the
-// tensor cores (WMMA m16n16k16, bf16 operands, float32 accumulation). A
-// block has four warps; warp w owns rows 16w .. 16w + 15 of every product
-// it writes.
+// Shared pieces of the WMMA flash attention kernels (flash_bias_bwd.cu,
+// flash_relbias.cu): 64-row tiles of a [B, L, H, 64] bf16 tensor staged in
+// shared memory and the 64 x 64 x 64 tile products on the tensor cores
+// (WMMA m16n16k16, bf16 operands, float32 accumulation). A block has four
+// warps; warp w owns rows 16w .. 16w + 15 of every product it writes.
 
 #pragma once
 
@@ -42,16 +41,6 @@ __device__ __forceinline__ void put(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float2 t = __bfloat1622float2(p[e]);
-    f[2 * e] = t.x;
-    f[2 * e + 1] = t.y;
-  }
-}
-
 // x as a pair of bf16 values hi + lo: ~16 significant bits, so a tile
 // product of the pair against bf16 operands (two WMMA products into the same
 // float32 accumulator) keeps P and dS at float32-level accuracy, where
@@ -60,38 +49,6 @@ __device__ __forceinline__ void split_bf16(float x, bf16* hi, bf16* lo) {
   const bf16 h = __float2bfloat16_rn(x);
   *hi = h;
   *lo = __float2bfloat16_rn(x - __bfloat162float(h));
-}
-
-// 32 consecutive bias values from p, of which the first n exist (n may be
-// <= 0); 16-byte loads when `vec` (the row is 16-byte aligned) and all 32
-// exist.
-__device__ __forceinline__ void load_bias32(const float* p, int n, bool vec,
-                                            float* out) {
-  if (vec && n >= 32) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float4 t = reinterpret_cast<const float4*>(p)[c];
-      out[4 * c] = t.x;
-      out[4 * c + 1] = t.y;
-      out[4 * c + 2] = t.z;
-      out[4 * c + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 32; ++c) out[c] = c < n ? p[c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_bias32(const bf16* p, int n, bool vec,
-                                            float* out) {
-  if (vec && n >= 32) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bf16x8_to_f32(reinterpret_cast<const uint4*>(p)[c], out + 8 * c);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 32; ++c) out[c] = c < n ? __bfloat162float(p[c]) : 0.f;
-  }
 }
 
 // Rows r0 .. r0 + 63 of head h of a [B, L, H, 64] bf16 tensor into a shared

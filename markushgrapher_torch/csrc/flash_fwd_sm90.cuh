@@ -1,0 +1,763 @@
+// One forward flash-attention core for Hopper (sm_90a), shared by the two
+// encoder kernels: flash_i8.cu (an int8 bias slab times a per-head scale,
+// plus a key mask) and flash_bias.cu (a bf16 or float32 additive bias, and
+// the float32 log-sum-exp of each row for the backward kernels).
+//
+// Both compute, for bf16 q, k, v [B, L, H, 64] and query i, key j, head h
+// (T5 convention, no 1/sqrt(d)):
+//   s = q_i . k_j + bias(i, j),  out_i = sum_j p_j v_j / max(l, 1e-30)
+// with the softmax online in float32 from the finite start -1e30 (a tile
+// whose keys are all masked yields no NaN; the next valid tile's rescale
+// wipes its weights), p = 0 exactly for keys at or past L, bf16 output.
+//
+// Design (a bias policy, BiasI8 / BiasBF16 / BiasF32, is the only
+// difference between the kernels):
+// - One CTA per (b*h, tile of 192 query rows): three consumer warpgroups,
+//   each owning 64 rows, and one producer warpgroup of which one warp
+//   works. setmaxnreg moves registers from the producer (24) to the
+//   consumers (160). One CTA per SM: Q 24 KB and the ring, 138 KB in all
+//   (int8, four stages), 145 KB (bf16, three) or 217 KB (float32, three).
+// - The producer warp keeps the ring in flight. A stage holds a 64-key K
+//   tile and V tile (TMA, 4-D tensor maps (D, H, L, B) so that rows past L
+//   are zero-filled within each batch, 128-byte swizzle: one row of 64 bf16
+//   is one swizzle atom), the bias tile of the CTA's 192 query rows for
+//   those keys (TMA where the bias row stride is a multiple of 16 bytes,
+//   3-D map (L, L, B*H) with the 64-byte (int8) or 128-byte swizzle;
+//   otherwise the producer warp copies it element by element with
+//   zero-fill, into the same swizzled layout, since such rows are only 1-,
+//   2- or 4-byte aligned), and for BiasI8 the 64 key-mask terms (0 or
+//   -1e30) with a flag saying whether any is -1e30. Completion is signalled
+//   on the stage's `full` mbarrier (32 producer arrivals plus the TMA
+//   bytes); the consumers release it on its `empty` mbarrier.
+// - S = bias + Q K^T: each thread reads the bias at its accumulator-
+//   fragment positions from the stage into the accumulator registers
+//   (BiasI8: __fmul_rn(code, scale_h), then __fadd_rn(., mask_j) in tiles
+//   with a masked key, the plain version's order, adding a 0 mask term
+//   changes nothing; -1e30 for keys at or past L), then four
+//   wgmma.m64n64k16 (bf16 operands from shared memory, float32
+//   accumulation) add the dots to it.
+// - The online softmax runs on the accumulator fragments: each thread holds
+//   16 scores of 2 rows, the 4 threads of a row meet by shuffles. e^x is
+//   ex2.approx.ftz(x log2 e): weights below 2^-126 of the row's largest
+//   flush to 0.
+// - P enters PV from registers as the A operand of wgmma, as a bf16 hi + lo
+//   pair (two products into the same float32 accumulator), so P keeps
+//   float32-level accuracy; V is the B operand in MN-major form (the layout
+//   TMA wrote, no transpose). No S, P or PV tile goes through shared memory.
+// - Each warpgroup overlaps tile t's QK^T and softmax with tile t-1's PV on
+//   the tensor cores; the output rescale by e^(m_old - m_new) waits for
+//   that PV and is skipped by a warp whose row maxima did not move.
+// - Epilogue: IEEE division by max(l, 1e-30), bf16 pairs straight from the
+//   fragments to the output; lse = m + log(max(l, 1e-30)).
+
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace ffwd {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;               // head dim: a 128-byte row
+constexpr int kBM = 64;              // query rows of a consumer warpgroup
+constexpr int kBN = 64;              // keys of a stage
+constexpr int kTile = kBN * kD * 2;  // one 64 x 64 bf16 tile: 8 KB
+constexpr int kWG = 3;               // consumer warpgroups per CTA
+constexpr int kRows = kWG * kBM;     // query rows per CTA
+constexpr int kThreads = (kWG + 1) * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+constexpr float kNegInf = -1e30f;
+
+// ---- bias policies: element type, ring depth, TMA box and swizzle, and
+// the byte offset of (row r, key c) in a stage's bias tile, as TMA lays it
+// out (the swizzle XORs the 16-byte chunk index with address bits 7..9); a
+// pair of keys (c even) is contiguous in every layout.
+
+struct BiasI8 {  // int8 codes * scale_h + key mask
+  using T = int8_t;
+  static constexpr bool kKeyMask = true;
+  static constexpr bool kLse = false;
+  static constexpr int kStages = 4;
+  static constexpr int kBoxCols = 64;  // 64-byte rows, 64-byte swizzle
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  __device__ __forceinline__ static int offset(int r, int c) {
+    return r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4 | (c & 15));
+  }
+  // offset(r, c + 8 j) from a = offset(r, c), c < 8 (a may carry a multiple
+  // of 128 more, as every stage offset does)
+  __device__ __forceinline__ static int at(int a, int j) {
+    return (a ^ (j >> 1) << 4) + 8 * (j & 1);
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    const char2 v = *reinterpret_cast<const char2*>(p);
+    return make_float2((float)v.x, (float)v.y);
+  }
+};
+
+struct BiasBF16 {  // bf16 additive bias, mask included
+  using T = bf16;
+  static constexpr bool kKeyMask = false;
+  static constexpr bool kLse = true;
+  static constexpr int kStages = 3;
+  static constexpr int kBoxCols = 64;  // 128-byte rows
+  static constexpr CUtensorMapDataType kType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  __device__ __forceinline__ static int offset(int r, int c) {
+    return r * 128 + ((((c >> 3) ^ r) & 7) << 4 | (c & 7) << 1);
+  }
+  __device__ __forceinline__ static int at(int a, int j) {
+    return a ^ j << 4;
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+struct BiasF32 {  // float32 additive bias, mask included
+  using T = float;
+  static constexpr bool kKeyMask = false;
+  static constexpr bool kLse = true;
+  static constexpr int kStages = 3;
+  static constexpr int kBoxCols = 32;  // two boxes of 128-byte rows
+  static constexpr CUtensorMapDataType kType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  __device__ __forceinline__ static int offset(int r, int c) {
+    return (c >> 5) * (kRows * 128) + r * 128 +
+           (((((c & 31) >> 2) ^ r) & 7) << 4 | (c & 3) << 2);
+  }
+  __device__ __forceinline__ static int at(int a, int j) {
+    return (a ^ (j & 3) << 5) + (j >> 2) * (kRows * 128);
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+};
+
+// Shared memory of a CTA (byte offsets from a 1024-aligned base): the Q
+// tiles of the warpgroups, the stages (K tile, V tile, bias tile), then for
+// BiasI8 the stages' 64 float mask terms and their any-masked flags.
+template <class P>
+struct Layout {
+  static constexpr int kStages = P::kStages;
+  static constexpr int kBiasBytes = kRows * kBN * (int)sizeof(typename P::T);
+  static constexpr int kStage0 = kWG * kTile;
+  static constexpr int kStageBytes = 2 * kTile + kBiasBytes;
+  static constexpr int kMask = kStage0 + kStages * kStageBytes;
+  static constexpr int kFlags = kMask + (P::kKeyMask ? kStages * kBN * 4 : 0);
+  static constexpr int kBytes = kFlags + (P::kKeyMask ? kStages * 4 : 0);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+struct Params {
+  const void* bias;      // [B or 1, H, L, L]; copied by the producer warp
+                         // when bias_tma == 0
+  const float* scales;   // [H] (BiasI8)
+  const int* key_mask;   // [B, L] (BiasI8)
+  bf16* out;             // [B, L, H, 64]
+  float* lse;            // [B, H, L] (BiasBF16, BiasF32)
+  int L, H, bias_batched, bias_tma;
+};
+
+// ---- PTX: mbarriers, TMA, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of transactions (TMA) in this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait of more than
+// 2^32 cycles (~2 s) traps, so a fault in the ring fails the launch instead
+// of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 32))
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap& map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap& map,
+                                       uint64_t* bar, int c0, int c1,
+                                       int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler moves no use of them across the fence or the wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand tile at a 1024-aligned address
+// (+ 16-byte steps along the swizzled row): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// d (+)= A B^T for A [64][16] and B [64][16], both K-major in shared memory
+// (d is overwritten unless `accumulate`).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B for A [64][16] from registers (the m64k16 fragment, four packed
+// bf16 pairs a) and B [16][64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// s += Q K^T of one tile (s holds the tile's bias terms): four k16 steps,
+// +32 bytes along d each
+__device__ __forceinline__ void qk(float (&s)[32], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, 1);
+}
+
+// acc += P V with P as its hi + lo pair: four k16 steps (+16 keys, 2048
+// bytes of V each) per part
+__device__ __forceinline__ void pv(float (&acc)[32], const uint32_t (&hi)[16],
+                                   const uint32_t (&lo)[16], uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, hi + 4 * kk, dv + kk * 128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, lo + 4 * kk, dv + kk * 128);
+}
+
+// ---- the softmax on the fragments
+
+// e^x as 2^(x log2 e); results below 2^-126 flush to 0
+__device__ __forceinline__ float ex(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// max and sum over a thread's 16 scores of row r (O = 0) or r + 8 (O = 2),
+// as trees
+template <int O>
+__device__ __forceinline__ float row_max(const float (&s)[32]) {
+  float t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = fmaxf(s[4 * j + O], s[4 * j + O + 1]);
+#pragma unroll
+  for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+  return t[0];
+}
+template <int O>
+__device__ __forceinline__ float row_sum(const float (&s)[32]) {
+  float t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = s[4 * j + O] + s[4 * j + O + 1];
+#pragma unroll
+  for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] += t[j + w];
+  return t[0];
+}
+
+// The bias terms of a thread's 32 scores into s, the accumulator that
+// QK^T then adds to: key pairs 8 j + cq of the stage tile's rows at byte
+// offsets a0 and a1 from smem (offsets of key cq); -1e30 for keys at or
+// past L. BiasI8: __fmul_rn(code, scale), then __fadd_rn(., mask term) in
+// a tile with a masked key (a 0 term changes nothing).
+template <class P>
+__device__ __forceinline__ void load_bias(float (&s)[32], const uint8_t* smem,
+                                          int a0, int a1, const float* mask,
+                                          bool masked, float scale, int cq,
+                                          int k0, int L) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float2 b0 = P::pair(smem + P::at(a0, j));
+    float2 b1 = P::pair(smem + P::at(a1, j));
+    if constexpr (P::kKeyMask) {
+      b0.x = __fmul_rn(b0.x, scale);
+      b0.y = __fmul_rn(b0.y, scale);
+      b1.x = __fmul_rn(b1.x, scale);
+      b1.y = __fmul_rn(b1.y, scale);
+      if (masked) {
+        const float2 mk = *reinterpret_cast<const float2*>(mask + 8 * j + cq);
+        b0.x = __fadd_rn(b0.x, mk.x);
+        b0.y = __fadd_rn(b0.y, mk.y);
+        b1.x = __fadd_rn(b1.x, mk.x);
+        b1.y = __fadd_rn(b1.y, mk.y);
+      }
+    }
+    s[4 * j] = b0.x;
+    s[4 * j + 1] = b0.y;
+    s[4 * j + 2] = b1.x;
+    s[4 * j + 3] = b1.y;
+  }
+  if (k0 + kBN > L) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = k0 + 8 * j + cq;
+      if (c >= L) s[4 * j] = s[4 * j + 2] = kNegInf;
+      if (c + 1 >= L) s[4 * j + 1] = s[4 * j + 3] = kNegInf;
+    }
+  }
+}
+
+// One online-softmax step over the tile of keys k0 .. k0 + 63: s = bias +
+// dot (-1e30 at or past L) becomes p = e^(s - m_new) in place (p = 0 past
+// L); m and l are updated; al = e^(m_old - m_new) rescales the output
+// accumulator.
+__device__ __forceinline__ void softmax_step(float (&s)[32], int k0, int L,
+                                             int cq, float& m0, float& m1,
+                                             float& l0, float& l1,
+                                             float& al0, float& al1) {
+  float mx0 = row_max<0>(s), mx1 = row_max<2>(s);
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  al0 = ex(m0 - mn0);
+  al1 = ex(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[4 * j] = ex(s[4 * j] - mn0);
+    s[4 * j + 1] = ex(s[4 * j + 1] - mn0);
+    s[4 * j + 2] = ex(s[4 * j + 2] - mn1);
+    s[4 * j + 3] = ex(s[4 * j + 3] - mn1);
+  }
+  if (k0 + kBN > L) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = k0 + 8 * j + cq;
+      if (c >= L) s[4 * j] = s[4 * j + 2] = 0.f;
+      if (c + 1 >= L) s[4 * j + 1] = s[4 * j + 3] = 0.f;
+    }
+  }
+  l0 = l0 * al0 + row_sum<0>(s);
+  l1 = l1 * al1 + row_sum<2>(s);
+}
+
+// acc *= al per row; a warp whose rows' maxima all stayed skips it
+__device__ __forceinline__ void rescale(float (&acc)[32], float al0,
+                                        float al1) {
+  if (!__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j] *= al0;
+    acc[4 * j + 1] *= al0;
+    acc[4 * j + 2] *= al1;
+    acc[4 * j + 3] *= al1;
+  }
+}
+
+// P as the A fragments of the four k16 steps, pair e = (s[2e], s[2e+1]),
+// each as bf16 hi = bf16(x) and lo = bf16(x - hi) (~16 significant bits),
+// packed low element first
+__device__ __forceinline__ void split(const float (&s)[32],
+                                      uint32_t (&hi)[16],
+                                      uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * e], s[2 * e + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(s[2 * e] - hf.x, s[2 * e + 1] - hf.y);
+    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[e] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// ---- the kernel body
+
+template <class P>
+__device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          const CUtensorMap& tb,
+                                          const Params& p) {
+  using Lay = Layout<P>;
+  using T = typename P::T;
+  constexpr int S = Lay::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[S], empty[S], qbar;
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int L = p.L, H = p.H;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int n_tiles = (L + kBN - 1) / kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto stage_of = [&](int t) {
+    return smem + Lay::kStage0 + (t % S) * Lay::kStageBytes;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kWG * 128);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWG * 4) {
+    // producer warpgroup; its first warp loads Q once, then keeps the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp != kWG * 4) return;
+    const int bhb = (p.bias_batched ? b : 0) * H + h;
+    if (lane == 0) {
+      mbar_arrive_tx(&qbar, kWG * kTile);
+#pragma unroll
+      for (int w = 0; w < kWG; ++w)
+        tma_4d(smem + w * kTile, tq, &qbar, 0, h, q0 + w * kBM, b);
+    }
+    const uint32_t tx = 2 * kTile + (p.bias_tma ? Lay::kBiasBytes : 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      const int k0 = t * kBN;
+      uint8_t* stage = stage_of(t);
+      uint8_t* btile = stage + 2 * kTile;
+      mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+      if constexpr (P::kKeyMask) {
+        float* mk = reinterpret_cast<float*>(smem + Lay::kMask) + s * kBN;
+        bool any = false;
+        for (int c = lane; c < kBN; c += 32) {
+          const int j = k0 + c;
+          const bool on = j < L && p.key_mask[(size_t)b * L + j] > 0;
+          mk[c] = on ? 0.f : kNegInf;
+          any |= !on;
+        }
+        any = __any_sync(0xffffffffu, any);
+        if (lane == 0) reinterpret_cast<int*>(smem + Lay::kFlags)[s] = any;
+      }
+      if (!p.bias_tma) {
+        const T* src = static_cast<const T*>(p.bias) + (size_t)bhb * L * L;
+        for (int e = lane; e < kRows * kBN; e += 32) {
+          const int r = e / kBN, c = e % kBN;
+          const int i = q0 + r, j = k0 + c;
+          T val{};
+          if (i < L && j < L) val = src[(size_t)i * L + j];
+          *reinterpret_cast<T*>(btile + P::offset(r, c)) = val;
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], tx);
+        tma_4d(stage, tk, &full[s], 0, h, k0, b);
+        tma_4d(stage + kTile, tv, &full[s], 0, h, k0, b);
+        if (p.bias_tma) {
+#pragma unroll
+          for (int c = 0; c < kBN; c += P::kBoxCols)
+            tma_3d(btile + (c / P::kBoxCols) * kRows * P::kBoxCols *
+                               (int)sizeof(T),
+                   tb, &full[s], k0 + c, q0, bhb);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg .. + 63. This thread holds
+  // rows r and r + 8 of them, keys 8 j + cq and 8 j + cq + 1 (j = 0 .. 7) of
+  // each 64-key tile: s[4 j + {0, 1}] on row r, s[4 j + {2, 3}] on row r + 8
+  // (the wgmma accumulator layout); acc the same over the 64 head dims.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;
+  const int r = (warp % 4) * 16 + lane / 4;
+  const int brow = wg * kBM + r;  // row in the CTA's bias tile
+  const int cq = 2 * (lane % 4);
+  float scale = 0.f;
+  if constexpr (P::kKeyMask) scale = p.scales[h];
+  const float* masks = reinterpret_cast<const float*>(smem + Lay::kMask);
+  const int* flags = reinterpret_cast<const int*>(smem + Lay::kFlags);
+  float acc[32], s[32];
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = s[e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, al0, al1;
+  const uint64_t dq = desc_sw128(smem + wg * kTile);
+  auto wait_full = [&](int t) {
+    mbar_wait(&full[t % S], (t / S) & 1);
+    __syncwarp();
+  };
+  const int a0 = P::offset(brow, cq), a1 = P::offset(brow + 8, cq);
+  auto bias_of = [&](int t) {  // into s
+    const int tile = Lay::kStage0 + (t % S) * Lay::kStageBytes + 2 * kTile;
+    load_bias<P>(s, smem, tile + a0, tile + a1, masks + (t % S) * kBN,
+                 P::kKeyMask && flags[t % S], scale, cq, t * kBN, L);
+  };
+  mbar_wait(&qbar, 0);
+  __syncwarp();
+
+  // tile 0: QK^T and softmax
+  wait_full(0);
+  bias_of(0);
+  pin(s);
+  wg_fence();
+  qk(s, dq, desc_sw128(stage_of(0)));
+  wg_commit();
+  wg_wait<0>();
+  pin(s);
+  softmax_step(s, 0, L, cq, m0, m1, l0, l1, al0, al1);
+  split(s, hi, lo);
+  // tile t: its QK^T and softmax beside tile t - 1's PV
+  for (int t = 1; t < n_tiles; ++t) {
+    wait_full(t);
+    bias_of(t);
+    pin(s);
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    wg_fence();
+    qk(s, dq, desc_sw128(stage_of(t)));
+    wg_commit();
+    pv(acc, hi, lo, desc_sw128(stage_of(t - 1) + kTile));
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+    softmax_step(s, t * kBN, L, cq, m0, m1, l0, l1, al0, al1);
+    wg_wait<0>();
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    mbar_arrive(&empty[(t - 1) % S]);
+    rescale(acc, al0, al1);
+    split(s, hi, lo);
+  }
+  pin(acc);
+  pin(hi);
+  pin(lo);
+  wg_fence();
+  pv(acc, hi, lo, desc_sw128(stage_of(n_tiles - 1) + kTile));
+  wg_commit();
+  wg_wait<0>();
+  pin(acc);
+  mbar_arrive(&empty[(n_tiles - 1) % S]);
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const int i0 = q0 + wg * kBM + r, i1 = i0 + 8;
+  if (i0 < L) {
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+        p.out + (((size_t)b * L + i0) * H + h) * kD + cq);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[4 * j] = __floats2bfloat162_rn(__fdiv_rn(acc[4 * j], d0),
+                                       __fdiv_rn(acc[4 * j + 1], d0));
+  }
+  if (i1 < L) {
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+        p.out + (((size_t)b * L + i1) * H + h) * kD + cq);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[4 * j] = __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2], d1),
+                                       __fdiv_rn(acc[4 * j + 3], d1));
+  }
+  if constexpr (P::kLse) {
+    if (lane % 4 == 0) {
+      if (i0 < L) p.lse[(size_t)bh * L + i0] = m0 + logf(d0);
+      if (i1 < L) p.lse[(size_t)bh * L + i1] = m1 + logf(d1);
+    }
+  }
+}
+
+// ---- host side: tensor maps and the launch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// q, k or v [B, L, H, 64] bf16: boxes of 64 rows of one head
+inline bool qkv_map(CUtensorMap* m, const void* ptr, int B, int L, int H) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2,
+                                 (cuuint64_t)H * kD * 2,
+                                 (cuuint64_t)L * H * kD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)kBM, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, one,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bias [BH, L, L]: boxes of kBoxCols keys x kRows query rows
+template <class P>
+inline bool bias_map(CUtensorMap* m, const void* ptr, int BH, int L) {
+  const cuuint64_t es = sizeof(typename P::T);
+  const cuuint64_t dims[3] = {(cuuint64_t)L, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)L * es, (cuuint64_t)L * L * es};
+  const cuuint32_t box[3] = {(cuuint32_t)P::kBoxCols, (cuuint32_t)kRows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return encoder()(m, P::kType, 3, const_cast<void*>(ptr), dims, strides,
+                   box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, P::kSwizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
+                        const CUtensorMap, const CUtensorMap, const Params);
+
+// Build the tensor maps (the bias by TMA only where its row stride and base
+// allow it) and launch one CTA per (b*h, kRows query rows).
+template <class P>
+int launch(Kernel kernel, const void* q, const void* k, const void* v,
+           Params p, int B, cudaStream_t stream) {
+  if (B <= 0 || p.L <= 0 || p.H <= 0) return (int)cudaErrorInvalidValue;
+  if (!encoder()) return (int)cudaErrorNotSupported;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv, tb;
+  std::memset(&tb, 0, sizeof(tb));
+  if (!qkv_map(&tq, q, B, p.L, p.H) || !qkv_map(&tk, k, B, p.L, p.H) ||
+      !qkv_map(&tv, v, B, p.L, p.H))
+    return (int)cudaErrorInvalidValue;
+  p.bias_tma = (p.L * (int)sizeof(typename P::T)) % 16 == 0 &&
+               aligned16(p.bias);
+  if (p.bias_tma &&
+      !bias_map<P>(&tb, p.bias, (p.bias_batched ? B : 1) * p.H, p.L))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<P>::kAlloc);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.L + kRows - 1) / kRows, B * p.H);
+  kernel<<<grid, kThreads, Layout<P>::kAlloc, stream>>>(tq, tk, tv, tb, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ffwd

@@ -18,10 +18,10 @@
 // (~0.08 ms at the bf16 tensor rate): it is bound by operations, plus the
 // bias arithmetic per score (two LUT reads, two table reads, a few float
 // ops), which runs on the CUDA cores.
-// Design: flash_bias.cu's forward (one block of four warps per (b*h,
-// 64-query tile); QK^T and PV as bf16 WMMA products with float32
+// Design: one block of four warps per (b*h, 64-query tile) on the WMMA
+// helpers of flash_bias.cuh; QK^T and PV as bf16 WMMA products with float32
 // accumulation, P entering PV as a bf16 hi + lo pair; two threads per query
-// row run the online softmax over 32 keys each), with the bias of each
+// row run the online softmax over 32 keys each, with the bias of each
 // score computed in registers instead of read from a slab. The head's three
 // table columns and both bucket LUTs sit in shared memory; the key tile's
 // centres and mask are staged there beside its K and V. The buckets come

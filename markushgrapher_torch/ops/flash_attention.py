@@ -4,9 +4,10 @@
 
 Replaces `markushgrapher_tpu/ops/flash_attention.py:flash_attention_bias_i8`
 (forward-only flash attention, T5 convention: no 1/sqrt(d)). Each bias entry
-is `int8 * scale_h`, plus -1e30 on masked keys; softmax in float32. The
-kernel is bound by CUDA-core float32 math in this first version (see the
-source note in the .cu file).
+is `int8 * scale_h`, plus -1e30 on masked keys; softmax in float32. Both
+forward kernels (int8 slab and float bias) are one Hopper core,
+`csrc/flash_fwd_sm90.cuh`: QK^T and PV on the tensor cores through wgmma,
+fed by a TMA ring of K / V / bias tiles (see its source note).
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel.
 """

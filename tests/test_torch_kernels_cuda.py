@@ -330,6 +330,64 @@ def test_flash_bias_ragged_lengths_and_bias_layouts(dev, chip_smoke, length,
         chip_smoke.grad_within("dbias summed", leaf.grad, ds)
 
 
+@pytest.mark.parametrize("kind,length,bias_batch,masked", [
+    ("int8", 200, 2, "tail"),       # 200-byte bias rows: no TMA
+    ("int8", 1280, 2, "tail"),      # the packed route's length
+    ("bf16", 1280, 2, "tail"),
+    ("int8", 640, 2, "first tile"),
+    ("bf16", 640, 2, "first tile"),
+    ("int8", 640, 2, "one row"),
+    ("bf16", 640, 2, "one row"),
+    ("bf16", 203, 1, "tail"),       # batch-1 bias, 406-byte rows: no TMA
+    ("float32", 203, 2, "tail")])   # 812-byte rows: no TMA
+def test_flash_fwd_sm90_cases(dev, chip_smoke, kind, length, bias_batch,
+                              masked):
+    """The wgmma forward core (flash_fwd_sm90.cuh) under both bias policies
+    against the plain versions: bias rows that TMA cannot stride, the packed
+    length, a first 64-key tile whose keys are all masked, a batch row whose
+    keys are all masked (uniform weights), a batch-1 and a float32 bias;
+    one launch each. The float biases mask keys at -1e9, as the bf16 slab
+    does (a row masked below the running max's -1e30 start gives 0)."""
+    rng = np.random.RandomState(length + len(masked))
+    B, H, D = 2, 3, 64
+    q, k, v = (torch.tensor(rng.randn(B, length, H, D) * s,
+                            dtype=torch.bfloat16, device=dev)
+               for s in (0.3, 0.3, 1.0))
+    keep = np.ones((B, length), bool)
+    if masked == "tail":
+        keep[:, length - length // 4:] = False
+    elif masked == "first tile":
+        keep[:, :64] = False
+    else:
+        keep[1] = False
+    _build.reset_launches()
+    if kind == "int8":
+        bias = torch.tensor(rng.randint(-127, 128, (B, H, length, length)),
+                            dtype=torch.int8, device=dev)
+        scales = torch.tensor(rng.rand(H) * 0.05, dtype=torch.float32,
+                              device=dev)
+        mask = torch.tensor(keep.astype(np.int32), device=dev)
+        got = flash_attention.flash_attention_bias_i8(q, k, v, bias, scales,
+                                                      mask)
+        ref = flash_attention.plain(q, k, v, bias, scales, mask)
+        assert _build.LAUNCHES["flash_i8"] == 1
+        chip_smoke.within("flash_i8", got, ref)
+    else:
+        bias = rng.randn(bias_batch, H, length, length) * 0.5
+        bias = np.where(keep[:bias_batch, None, None, :], bias, -1e9)
+        bias = torch.tensor(bias, device=dev, dtype={
+            "bf16": torch.bfloat16, "float32": torch.float32}[kind])
+        got, lse = flash_attention.flash_bias_fwd(q, k, v, bias)
+        ref, lse_ref = flash_attention.plain_fwd(q, k, v, bias)
+        assert _build.LAUNCHES["flash_bias"] == 1
+        chip_smoke.within("flash_bias", got, ref)
+        chip_smoke.lse_within(lse, lse_ref)
+    if masked == "one row":  # every key masked: the mean of v
+        torch.testing.assert_close(
+            got[1].float(), v[1].float().mean(0, keepdim=True).expand(
+                length, H, D), atol=1e-3, rtol=1.6e-2)
+
+
 def test_flash_bias_refuses(dev):
     q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=dev)
     bias = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=dev)
