@@ -12,7 +12,8 @@ prints no result):
    the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
-   spills and static shared memory of the two wgmma encoder forwards;
+   spills and static shared memory of the wgmma kernels: the two encoder
+   forwards and the two float-bias backward kernels;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
@@ -31,7 +32,9 @@ prints no result):
    heads) over that ring. The float-bias flash forward at its serving shapes
    (B=2, B=8) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
-   SDPA with the bias as attn_mask as the library yardstick. The beam-5
+   SDPA with the bias as attn_mask as the library yardstick (SDPA's one
+   backward call, which computes dq, dk, dv and d(mask) together, is also
+   set against the sum of the two backward kernels). The beam-5
    self ring (40 rows, ring 512) as copy-on-write segments of 128 with a
    random row map: decode_int4 / decode_i8 read through the map, up to the
    valid prefix, and both; lattice_self_int4 at 1 and 4 live segments;
@@ -139,9 +142,12 @@ KERNELS = {
 # the first CHECKED_STEPS decode steps
 DECODE_KERNELS = ("decode_int4", "decode_i8", "lattice_self_int4")
 FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
-# the kernel symbols of the two wgmma encoder forwards (flash_fwd_sm90.cuh),
-# whose ptxas register, spill and shared-memory report phase 2 prints
+# the kernel symbols of the wgmma kernels whose ptxas register, spill and
+# shared-memory report phase 2 prints: the two encoder forwards
+# (flash_fwd_sm90.cuh) and the two float-bias backward kernels
+# (flash_bias_bwd.cu)
 FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel")
+FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -605,8 +611,8 @@ def check_flash_bias(dev) -> dict:
     backward kernels at the training shape (B=8), all L=1536, H=16, D=64,
     bf16 bias. Library yardstick: SDPA with the bias as attn_mask and scale 1,
     forward, and forward + backward with a grad-requiring mask (its backward
-    computes dq, dk, dv and d(mask) in one; reported for both backward
-    kernels). Returns the training shape's rows."""
+    computes dq, dk, dv and d(mask) in one; reported for each backward
+    kernel and for their sum). Returns the training shape's rows."""
     import torch
     import torch.nn.functional as F
 
@@ -694,6 +700,13 @@ def check_flash_bias(dev) -> dict:
            out["flash_bias_dkv"])
     report("flash_bias_dq", f"{shape}, d(bias) bf16 (library: SDPA "
            f"backward)", out["flash_bias_dq"])
+    pair = [out[n] for n in ("flash_bias_dkv", "flash_bias_dq")]
+    both, both_bound = (sum(r[key] for r in pair)
+                        for key in ("ms", "bound_ms"))
+    print(f"flash_bias backward, dkv + dq, {shape}: kernels {both:.4f} ms, "
+          f"bound {both_bound:.4f} ms ({both_bound / both:.1%} of it "
+          f"reached), library {lib_bwd:.4f} ms (SDPA backward; kernels "
+          f"{both / lib_bwd:.2f}x)", flush=True)
     return out
 
 
@@ -1532,7 +1545,8 @@ def main() -> None:
              if "registers" in ln or "spill" in ln]
     print(f"build: {_build.build_info['seconds']:.1f} s "
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
-    for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS):
+    for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
+                                   FLASH_BWD_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack

@@ -1,8 +1,8 @@
-// Shared pieces of the WMMA flash attention kernels (flash_bias_bwd.cu,
-// flash_relbias.cu): 64-row tiles of a [B, L, H, 64] bf16 tensor staged in
-// shared memory and the 64 x 64 x 64 tile products on the tensor cores
-// (WMMA m16n16k16, bf16 operands, float32 accumulation). A block has four
-// warps; warp w owns rows 16w .. 16w + 15 of every product it writes.
+// Shared pieces of the WMMA flash attention kernel flash_relbias.cu: 64-row
+// tiles of a [B, L, H, 64] bf16 tensor staged in shared memory and the
+// 64 x 64 x 64 tile products on the tensor cores (WMMA m16n16k16, bf16
+// operands, float32 accumulation). A block has four warps; warp w owns rows
+// 16w .. 16w + 15 of every product it writes.
 
 #pragma once
 
@@ -29,17 +29,9 @@ typedef bf16 TileH[kLdH];
 typedef float TileF[kLdF];
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // x as a pair of bf16 values hi + lo: ~16 significant bits, so a tile
 // product of the pair against bf16 operands (two WMMA products into the same
@@ -64,26 +56,6 @@ __device__ __forceinline__ void load_rows(TileH* dst,
       val = *reinterpret_cast<const uint4*>(
           src + (((size_t)b * L + r0 + row) * H + h) * kD + col);
     *reinterpret_cast<uint4*>(&dst[row][col]) = val;
-  }
-}
-
-// A float32 [64][64] shared tile to rows r0 .. of head h of a [B, L, H, 64]
-// bf16 tensor (rows at or past L are skipped).
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           const TileF* src, int b, int h,
-                                           int r0, int L, int H) {
-  for (int c = threadIdx.x; c < kT * (kD / 8); c += kThreads) {
-    const int row = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    if (r0 + row >= L) continue;
-    uint4 packed;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p2[e] = __floats2bfloat162_rn(src[row][col + 2 * e],
-                                    src[row][col + 2 * e + 1]);
-    *reinterpret_cast<uint4*>(
-        dst + (((size_t)b * L + r0 + row) * H + h) * kD + col) = packed;
   }
 }
 
@@ -116,23 +88,6 @@ __device__ __forceinline__ void mma_ab(FragC* acc, const TileH* a, int r0,
   for (int kk = 0; kk < 4; ++kk) {
     FragA fa;
     wmma::load_matrix_sync(fa, &a[r0][kk * 16], kLdH);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, &b[kk * 16][n * 16], kLdH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// acc[n] += (A^T B)[r0 ..][16n ..] (P^T dO, dS^T Q): A is given as stored,
-// [64 q][64 keys], and the product's rows are A's columns.
-__device__ __forceinline__ void mma_atb(FragC* acc, const TileH* a, int r0,
-                                        const TileH* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragAT fa;
-    wmma::load_matrix_sync(fa, &a[kk * 16][r0], kLdH);
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       FragB fb;

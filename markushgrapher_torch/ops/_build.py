@@ -2,13 +2,14 @@
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
 (the two decode kernels, the lattice kernel and the OCR megastep share
-`decode_common.cuh`, the float-bias flash forward and backward and the
-in-kernel-bias flash forward `flash_bias.cuh`). At first use they are
-compiled with nvcc for Hopper (`sm_90a`), one nvcc process per source, all
-started together, and linked into one shared
-library under `markushgrapher_torch/_build/` (named by a hash of the sources
-and flags, so an edit rebuilds), loaded with ctypes. Nothing is built or
-imported at module import: the CPU tests import every module.
+`decode_common.cuh`; the two encoder flash forwards `flash_fwd_sm90.cuh`,
+which with the float-bias backward shares the Hopper pieces of `sm90.cuh`;
+the in-kernel-bias flash forward includes `flash_bias.cuh`). At first use
+they are compiled with nvcc for Hopper (`sm_90a`), one nvcc process per
+source, all started together, and linked into one shared library under
+`markushgrapher_torch/_build/` (named by a hash of the sources and flags,
+so an edit rebuilds), loaded with ctypes. Nothing is built or imported at
+module import: the CPU tests import every module.
 
 Every kernel wrapper adds one to its entry of `LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show that the main path went

@@ -388,6 +388,65 @@ def test_flash_fwd_sm90_cases(dev, chip_smoke, kind, length, bias_batch,
                 length, H, D), atol=1e-3, rtol=1.6e-2)
 
 
+@pytest.mark.parametrize("kind,length,bias_batch,masked", [
+    ("bf16", 200, 2, "tail"),        # 400-byte bias rows: TMA
+    ("float32", 200, 2, "tail"),
+    ("bf16", 203, 2, "tail"),        # 406-byte rows: no TMA
+    ("float32", 203, 1, "tail"),     # 812-byte rows, batch-1 bias
+    ("bf16", 1536, 2, "tail"),       # the training length
+    ("bf16", 640, 2, "first tile"),
+    ("float32", 640, 2, "first tile"),
+    ("bf16", 640, 2, "query rows"),
+    ("float32", 333, 2, "query rows"),
+    ("bf16", 640, 1, "tail")])
+def test_flash_bwd_sm90_cases(dev, chip_smoke, kind, length, bias_batch,
+                              masked):
+    """The wgmma backward kernels (flash_bias_bwd.cu) and the autograd op
+    against the plain versions, one launch each: bias rows that TMA can and
+    cannot stride, bf16 and float32 biases, the training length, a first
+    64-key tile whose keys are all masked, query rows whose every key is at
+    -1e9, and batch-1 biases, whose d(bias) the op sums over the batch."""
+    rng = np.random.RandomState(length + len(masked) + bias_batch)
+    B, H, D = 2, 3, 64
+    q, k, v, do = (torch.tensor(rng.randn(B, length, H, D) * s,
+                                dtype=torch.bfloat16, device=dev)
+                   for s in (0.3, 0.3, 1.0, 0.1))
+    bias = rng.randn(bias_batch, H, length, length) * 0.5
+    if masked == "tail":
+        bias[..., length - length // 4:] = -1e9
+    elif masked == "first tile":
+        bias[..., :64] = -1e9
+    else:
+        bias[:, :, [5, length - 7], :] = -1e9
+    bias = torch.tensor(bias, device=dev, dtype={
+        "bf16": torch.bfloat16, "float32": torch.float32}[kind])
+    o, lse = flash_attention.flash_bias_fwd(q, k, v, bias)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, bias, do, lse, di)
+    _build.reset_launches()
+    got = flash_attention.flash_bias_dkv(*args) + \
+        flash_attention.flash_bias_dq(*args)
+    assert _build.LAUNCHES["flash_bias_dkv"] == 1
+    assert _build.LAUNCHES["flash_bias_dq"] == 1
+    ref = flash_attention.plain_bwd_dkv(*args) + \
+        flash_attention.plain_bwd_dq(*args)
+    for g, r, name in zip(got, ref, ("dk", "dv", "dq", "dbias")):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        chip_smoke.grad_within(name, g, r)
+    cols = {"tail": slice(length - length // 4, None),
+            "first tile": slice(0, 64)}.get(masked)
+    if cols is not None:  # keys masked at -1e9: dS = 0 there
+        assert not bool(got[3][..., cols].any())
+    leaf = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    flash_attention.flash_attention_train(*leaf).backward(do)
+    dbias = ref[3].float().sum(0, keepdim=True) if bias_batch == 1 \
+        else ref[3]
+    for t, r, name in zip(leaf, (ref[2], ref[0], ref[1], dbias),
+                          ("op dq", "op dk", "op dv", "op dbias")):
+        assert t.grad.shape == t.shape and t.grad.dtype == t.dtype, name
+        chip_smoke.grad_within(name, t.grad, r)
+
+
 def test_flash_bias_refuses(dev):
     q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=dev)
     bias = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=dev)
