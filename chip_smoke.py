@@ -12,8 +12,9 @@ prints no result):
    the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
-   spills and static shared memory of the wgmma kernels: the two encoder
-   forwards and the two float-bias backward kernels;
+   spills and static shared memory of the wgmma kernels (the two encoder
+   forwards and the two float-bias backward kernels) and of the OCR
+   megastep (one instantiation per batch tiling);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
@@ -28,8 +29,9 @@ prints no result):
    time is none (SDPA over a prebuilt bf16 slab is printed for scale).
    The OCR shapes: the
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
-   p = L0 + 400; decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv
-   heads) over that ring. The float-bias flash forward at its serving shapes
+   p = L0 + 400, and at batch 48 (MEGA_BATCH) at p = L0 + 400;
+   decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv heads) over that
+   ring. The float-bias flash forward at its serving shapes
    (B=2, B=8) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
    SDPA with the bias as attn_mask as the library yardstick (SDPA's one
@@ -78,7 +80,8 @@ prints no result):
    and the lattice at batch 8 and 16, int8 greedy at batch 48 (all over the
    int8 slab), and predict.yaml's beam-5 over the bf16 slab and bf16 KV at
    batch 8; OCR prefill ms, ms/step and img/s of the int4, int8 and
-   megastep paths at batch 8 and 512 new tokens; and one
+   megastep paths at batch 8 and of the megastep at batch 48, 512 new
+   tokens; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
    fallback cells where random weights emit none) -> SampleEncoder /
    DataCollator with pixels from `data.device_pixels` -> MG greedy int4,
@@ -148,6 +151,8 @@ FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 # (flash_bias_bwd.cu)
 FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel")
 FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
+# the OCR megastep's instantiations (batch tiles of 8, 16, 48 rows)
+MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -229,6 +234,8 @@ SEG = 128
 # kernel each decode step launches, options: the model's block_skip and the
 # path's new tokens, default OCR_TOKENS)
 OCR_BATCH, OCR_TOKENS = 8, 512
+# the megastep's large-batch case: phase 3's check and phase 5's timing
+MEGA_BATCH = 48
 OCR_PATHS = (
     ("ocr_int4", dict(quant_kv=True, int4_kv=True, quant_weights=True),
      "decode_int4", dict(tokens=256)),
@@ -867,11 +874,43 @@ def rings_close(got: dict, ref: dict, pos: int, what: str) -> None:
                 f"by {int(dq.max())}, scales by {float(ds.max()):.3e})")
 
 
+def ocr_ring_len(model) -> int:
+    """The engine's ring: L0 + OCR_TOKENS rounded up to 128."""
+    ring = ocr_prefix_len(model) + OCR_TOKENS
+    return ring + -ring % 128
+
+
+def mega_inputs(model, gen, batch: int, ring: int, pos: int) -> tuple:
+    """The megastep's step inputs for `model` (OCRConfig() in phase 3):
+    int8 K / V rings [L, batch, ring, G D] with scales in [0, 0.03) whose
+    columns >= pos are zero, and bf16 x [batch, d_model], drawn from
+    `gen` in that order."""
+    import torch
+
+    t = model.cfg.text
+    n_layers, groups = t.num_layers, t.num_kv_heads
+    dkv = groups * (t.d_model // t.num_heads)
+    rings = {}
+    for name in ("k", "v"):
+        vals = torch.randint(-127, 128, (n_layers, batch, ring, dkv),
+                             generator=gen, device=gen.device,
+                             dtype=torch.int8)
+        sc = torch.rand((n_layers, batch, groups, ring), generator=gen,
+                        device=gen.device) * 0.03
+        vals[:, :, pos:] = 0
+        sc[..., pos:] = 0
+        rings[name + "_q"], rings[name + "_s"] = vals, sc
+    x = torch.randn((batch, t.d_model), generator=gen,
+                    device=gen.device).to(torch.bfloat16)
+    return x, rings
+
+
 def check_ocr_kernels(dev, model) -> dict:
     """The kernels at the OCR shapes (OCRConfig() width, batch 8, ring
     L0 + 512 rounded up to 128): the megastep at p = L0 and p = L0 + 400
-    (its headline), decode_int4 at G = 5 and decode_i8 at 15 rows over 5 kv
-    heads, both at p = L0 + 400. Returns {"ocr_megastep": {...}}."""
+    (its headline), and at batch MEGA_BATCH at p = L0 + 400; decode_int4
+    at G = 5 and decode_i8 at 15 rows over 5 kv heads, both at p = L0 +
+    400. Returns {"ocr_megastep": {...}} (batch 8, p = L0 + 400)."""
     import torch
 
     from markushgrapher_torch.ops import megastep, mxu_decode
@@ -879,26 +918,15 @@ def check_ocr_kernels(dev, model) -> dict:
     t = model.cfg.text
     heads, groups, d = t.num_heads, t.num_kv_heads, t.d_model // t.num_heads
     l0 = ocr_prefix_len(model)
-    ring = l0 + OCR_TOKENS
-    ring += -ring % 128
+    ring = ocr_ring_len(model)
     w = model.megastep_pack()["lm"]
     kw = dict(heads=heads, groups=groups, rms_eps=t.rms_eps)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     b, n_layers, dkv = OCR_BATCH, t.num_layers, groups * d
     late = l0 + min(400, OCR_TOKENS - 1)
     out = {}
-    for pos in (l0, late):
-        rings = {}
-        for name in ("k", "v"):
-            vals = torch.randint(-127, 128, (n_layers, b, ring, dkv),
-                                 generator=gen, device=dev, dtype=torch.int8)
-            sc = torch.rand((n_layers, b, groups, ring), generator=gen,
-                            device=dev) * 0.03
-            vals[:, :, pos:] = 0
-            sc[..., pos:] = 0
-            rings[name + "_q"], rings[name + "_s"] = vals, sc
-        x = torch.randn((b, t.d_model), generator=gen, device=dev).to(
-            torch.bfloat16)
+    for mb, pos in ((b, l0), (b, late), (MEGA_BATCH, late)):
+        x, rings = mega_inputs(model, gen, mb, ring, pos)
         _, err, step_err, rel = mega_check(megastep.ocr_megastep, x, rings,
                                            w, model.rope(), pos, kw)
         torch.cuda.synchronize()
@@ -906,7 +934,7 @@ def check_ocr_kernels(dev, model) -> dict:
                 for k, v in rings.items()}
         weights = sum(v.numel() for k, v in w.items() if v.dtype ==
                       torch.int8)
-        flops = 2 * b * weights + 4 * b * heads * pos * d * n_layers
+        flops = 2 * mb * weights + 4 * mb * heads * pos * d * n_layers
         res = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: megastep.ocr_megastep(
@@ -915,9 +943,11 @@ def check_ocr_kernels(dev, model) -> dict:
                 x, rings, w, model.rope(), pos, **kw), 3, 1),
             library_ms=None,
             **bound(nbytes(x, x, *w.values(), *live.values()), flops))
-        report("ocr_megastep", f"L={n_layers} B={b} S={ring} p={pos}; whole "
+        report("ocr_megastep", f"L={n_layers} B={mb} S={ring} p={pos}; whole "
                f"step max abs err {step_err:.3e}, rel L2 {rel:.3e}", res)
-        out["ocr_megastep"] = res
+        if mb == b:
+            out["ocr_megastep"] = res
+        del rings, live, x
 
     # decode attention over the OCR ring: 15 query heads over 5 kv heads
     pos = late
@@ -1546,7 +1576,7 @@ def main() -> None:
     print(f"build: {_build.build_info['seconds']:.1f} s "
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
     for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
-                                   FLASH_BWD_SYMBOLS):
+                                   FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
@@ -1756,13 +1786,19 @@ def main() -> None:
                   f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
                   f"steps, cross pack {t['cross_pack']}, peak "
                   f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
-    for name, flags, _, opts in OCR_PATHS:
+    pages_big = torch.tensor(np.random.RandomState(SEED + 1).randint(
+        0, 256, (MEGA_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
+    for name, flags, _, opts in OCR_PATHS + (
+            (OCR_PATHS[2][0], OCR_PATHS[2][1], None, dict(big=True)),):
         if opts.get("block_skip"):
             continue
-        t = time_ocr_path(ocr, tok, pages, flags, dev)
-        print(f"timing {name} b{OCR_BATCH}: prefill {t['prefill_ms']:.1f} ms, "
-              f"decode {t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.3f} "
-              f"img/s ({OCR_TOKENS} new tokens) on {card}", flush=True)
+        batch_pages = pages_big if opts.get("big") else pages
+        t = time_ocr_path(ocr, tok, batch_pages, flags, dev)
+        print(f"timing {name} b{batch_pages.shape[0]}: prefill "
+              f"{t['prefill_ms']:.1f} ms, decode {t['ms_per_step']:.3f} "
+              f"ms/step, {t['img_per_s']:.3f} img/s ({OCR_TOKENS} new "
+              f"tokens) on {card}", flush=True)
+    del pages_big
     t = time_pipeline(ocr, route_model(model, cfg, host, "int8 slab", "int4"),
                       mt, cfg, pages, dev)
     print(f"timing pipeline b{OCR_BATCH} (pages -> OCR int4, {OCR_TOKENS} "

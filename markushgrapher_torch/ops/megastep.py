@@ -42,8 +42,6 @@ import torch
 
 from markushgrapher_torch.ops import _build
 
-# the kernel keeps up to this many batch rows' accumulators in registers
-MAX_BATCH = 16
 _THREADS = 256
 
 
@@ -186,12 +184,14 @@ def _check(x, rings, w, rope, pos, heads, groups) -> Dict[str, int]:
     if x.shape != (b, dm) or x.dtype != torch.bfloat16:
         raise ValueError(f"ocr_megastep: x must be bf16 [B, {dm}], got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"ocr_megastep: batch {b} outside [1, {MAX_BATCH}]")
-    if d % 4 or d > _THREADS or _THREADS % d or dm % 4 or dq % 4 or f % 4:
+    if b < 1:
+        raise ValueError(f"ocr_megastep: batch {b} must be at least 1")
+    if d % 4 or d > _THREADS or _THREADS % d or dm % 16 or dq % 16 \
+            or f % 16:
         raise ValueError(f"ocr_megastep: head dim {d} must divide "
                          f"{_THREADS} and be a multiple of 4, and d_model "
-                         f"{dm} / heads * dim {dq} / d_ff {f} multiples of 4")
+                         f"{dm} / heads * dim {dq} / d_ff {f} multiples of "
+                         f"16")
     if not 0 <= pos < ring_len or rope.shape[0] <= pos \
             or tuple(rope.shape[1:]) != (d // 2, 2):
         raise ValueError(f"ocr_megastep: position {pos} outside the ring "
@@ -224,7 +224,14 @@ def ocr_megastep(x: torch.Tensor, rings: Dict[str, torch.Tensor],
     b, dm, f = dims["B"], dims["Dm"], dims["F"]
     nqkv = w["wqkv"].shape[1]
     dq = heads * dims["D"]
-    scratch = torch.empty(b * (dm + nqkv + dq + f), dtype=torch.float32,
+    # the grid barrier's arrival count (alone in 256 bytes: a count that
+    # shares its line with x measured 11 % slower; zeroed by the C entry
+    # before each launch) | x float32 [B, Dm] | each row's sums of squares
+    # over 16-column tiles, padded to 4 [B, ceil(Dm / 64) * 4] | qkv float32
+    # [B, nqkv] | attn and mid bf16 [B, Dq + 8], [B, F + 8]
+    # (csrc/ocr_megastep.cu)
+    scratch = torch.empty(64 + b * (dm + -(-dm // 64) * 4 + nqkv)
+                          + b * (dq + f + 16) // 2, dtype=torch.float32,
                           device=x.device)
     out = torch.empty_like(x)
     tensors = [x, out, scratch, rope, *(rings[k] for k in

@@ -235,16 +235,34 @@ def _mega_inputs(dev, n_layers, b, dm, heads, groups, d, f, ring, pos, seed):
     return x, rings, w
 
 
+# (pos, batch, head dim) of the cases whose two-layer step moves layer 1's
+# ring column past one int8 code or its scales past 1e-3: layer 1 reads
+# layer 0's output, which kernel and plain round apart by an ulp, so there
+# the column is held dequantised, in relative L2, as chip_smoke holds a
+# whole step's; layer 0's column stays held tight, and every layer is held
+# tight on the same input in the layer-by-layer loop
+CHAINED_ROUNDING = {(150, 16, 32), (150, 24, 32)}
+
+
+@pytest.mark.parametrize("batch,heads,groups,d", [
+    (3, 6, 2, 32), (16, 6, 2, 32), (24, 6, 2, 32), (48, 6, 2, 32),
+    (50, 6, 2, 32), (8, 15, 5, 64), (5, 6, 2, 8)])
 @pytest.mark.parametrize("pos", [1, 150])
-def test_megastep_matches_plain(dev, chip_smoke, pos):
+def test_megastep_matches_plain(dev, chip_smoke, pos, batch, heads, groups,
+                                d):
     """ocr_megastep against plain_megastep: one layer at a time (the plain
-    output chained as the next input) within chip_smoke's tolerance, the
-    ring column `pos` within one int8 step, and the two-layer step."""
+    output chained as the next input) within chip_smoke's tolerance, with
+    its ring column `pos` within one int8 step and its scales within 1e-3,
+    and the two-layer step, its ring column as tight (but for
+    CHAINED_ROUNDING's layer 1). Every instance the kernel picks: batch
+    tiles of one 8-row tile (B = 3, 5, 8), two (16) and groups of up to
+    48 rows (24, 48, and 50 in two groups); the attention at any head dim
+    (32; 8, below the 16 columns a thread takes in P V) and at the OCR
+    model's 64, 15 query heads over 5 kv heads."""
     from markushgrapher_torch.ocr.vlm import rope_frequencies
 
-    heads, groups, d = 6, 2, 32
-    x, rings, w = _mega_inputs(dev, 2, 3, 192, heads, groups, d, 256, 256,
-                               pos, 7)
+    x, rings, w = _mega_inputs(dev, 2, batch, 192, heads, groups, d, 256,
+                               256, pos, 7)
     rope = rope_frequencies(d, 512, 1e5).to(dev)
     kw = dict(heads=heads, groups=groups, rms_eps=1e-5)
     ring_k = {k: v.clone() for k, v in rings.items()}
@@ -255,12 +273,20 @@ def test_megastep_matches_plain(dev, chip_smoke, pos):
     ref = megastep.plain_megastep(x, ring_p, w, rope, pos, **kw)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=3e-2)
+    tight = 1 if (pos, batch, d) in CHAINED_ROUNDING else None
     for k in ("k_q", "v_q"):
         diff = (ring_k[k].int() - ring_p[k].int()).abs()
         assert int(diff[:, :, :pos].max()) == 0
-        assert int(diff[:, :, pos].max()) <= 1
+        assert int(diff[:tight, :, pos].max()) <= 1
     for k in ("k_s", "v_s"):
-        torch.testing.assert_close(ring_k[k], ring_p[k], rtol=1e-3, atol=0)
+        torch.testing.assert_close(ring_k[k][:tight], ring_p[k][:tight],
+                                   rtol=1e-3, atol=0)
+    if tight is not None:
+        for name in ("k", "v"):
+            assert chip_smoke._rel(
+                chip_smoke.deq_column(ring_k, name, pos)[tight:],
+                chip_smoke.deq_column(ring_p, name, pos)[tight:]) <= \
+                chip_smoke.WHOLE_STEP_REL
     xin = x
     for layer in range(2):
         one = {k: t[layer:layer + 1] for k, t in w.items()}
@@ -271,6 +297,7 @@ def test_megastep_matches_plain(dev, chip_smoke, pos):
         atol, rtol = chip_smoke.TOL["ocr_megastep"]
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
+        chip_smoke.rings_close(rk, rp, pos, f"layer {layer}")
         xin = ref
 
 

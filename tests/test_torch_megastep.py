@@ -156,7 +156,14 @@ def test_megastep_refuses_bad_shapes():
         megastep._check(x, rings, w, model.rope(), 128, 4, 2)
     with pytest.raises(ValueError, match="shapes"):
         megastep._check(x, rings, w, model.rope(), 5, 4, 4)
+    # B = 17 and 48 are taken (the kernel tiles the batch in groups of up
+    # to 48 rows); an empty batch is refused before any launch
+    for b in (17, 48):
+        dims = megastep._check(torch.zeros((b, 16), dtype=torch.bfloat16),
+                               {k: v.expand(2, b, *v.shape[2:]) for k, v in
+                                rings.items()}, w, model.rope(), 5, 4, 2)
+        assert dims["B"] == b
     with pytest.raises(ValueError, match="batch"):
-        megastep._check(torch.zeros((17, 16), dtype=torch.bfloat16),
-                        {k: v.expand(2, 17, *v.shape[2:]) for k, v in
-                         rings.items()}, w, model.rope(), 5, 4, 2)
+        megastep._check(torch.zeros((0, 16), dtype=torch.bfloat16),
+                        {k: v[:, :0] for k, v in rings.items()}, w,
+                        model.rope(), 5, 4, 2)
