@@ -12,7 +12,7 @@ prints no result):
    the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
-   spills and static shared memory of the wgmma kernels (the two encoder
+   spills and static shared memory of the wgmma kernels (the three encoder
    forwards and the two float-bias backward kernels) and of the OCR
    megastep (one instantiation per batch tiling);
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -25,7 +25,8 @@ prints no result):
    keys masked, against SDPA with the dequantised bias and mask as a bf16
    attn_mask. flash_relbias (the bias
    computed in the kernel) at B=2 and B=8, L=1536, H=16, D=64, bf16, with
-   padded keys: no PyTorch call builds the relative bias, so its library
+   padded keys, and the CUDA-core floor of computing its bias beside the
+   bound: no PyTorch call builds the relative bias, so its library
    time is none (SDPA over a prebuilt bf16 slab is printed for scale).
    The OCR shapes: the
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
@@ -146,10 +147,11 @@ KERNELS = {
 DECODE_KERNELS = ("decode_int4", "decode_i8", "lattice_self_int4")
 FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 # the kernel symbols of the wgmma kernels whose ptxas register, spill and
-# shared-memory report phase 2 prints: the two encoder forwards
+# shared-memory report phase 2 prints: the three encoder forwards
 # (flash_fwd_sm90.cuh) and the two float-bias backward kernels
 # (flash_bias_bwd.cu)
-FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel")
+FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel",
+                     "flash_relbias_kernel")
 FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
 # the OCR megastep's instantiations (batch tiles of 8, 16, 48 rows)
 MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
@@ -157,6 +159,18 @@ MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+# the CUDA cores (H100 SXM, 700 W): 67 TFLOP/s FP32 is 128 lanes a clock on
+# each of 132 SMs at 1.98 GHz, also the rate at which an SM issues warp
+# instructions (4 schedulers x 32 lanes); shared memory serves 32 words a
+# clock per SM
+PEAK_LANE_OPS, PEAK_SMEM_WORDS = 67e12 / 2, 132 * 32 * 1.98e9
+# flash_relbias's bias on the CUDA cores, per score (csrc/flash_fwd_sm90.cuh
+# rel2 / rel_bias): two 2d terms of 7 instructions (sub, mul, min |d|,
+# add.rz, compare, select, shift-add) and a shared load each, two adds, half
+# a shared load of key centres; one more load on key tiles near the
+# diagonal (the 1d table), one select and a quarter load in tiles with a
+# masked key
+REL_OPS, REL_LOADS = 16, 2.5
 # kernel-vs-plain tolerances (|kernel - plain| <= atol + rtol * |plain|):
 #  - bias_build_i8 and normalize_u8 are exact (same LUT buckets, same
 #    float32 op order);
@@ -739,11 +753,47 @@ def relbias_inputs(dev, batch: int, seed: int):
     return q, k, v, hx, vy, mask, tables
 
 
+def relbias_floor(mask, heads: int, max1: int = 128) -> dict:
+    """The CUDA-core floor of flash_relbias's bias on this run's inputs
+    (REL_OPS, REL_LOADS): the instructions and shared loads its scores need
+    over the SMs' issue and shared-load rates, the larger. A score of a key
+    tile near a warp's 16 rows (not every distance at or past max1 on one
+    side) loads its 1d term; a score of a tile with a masked key (or one at
+    or past L) takes a select."""
+    import torch
+
+    batch, length = mask.shape
+    tiles = -(-length // 64)
+    k0 = torch.arange(tiles) * 64
+    i0 = torch.arange(-(-length // 16)) * 16
+    far = (k0[None, :] - (i0[:, None] + 15) >= max1) | \
+        (k0[None, :] + 63 - i0[:, None] <= -max1)
+    # scores per (warp, tile): 16 rows (those < L) x the tile's keys (< L)
+    rows = (length - i0).clamp(max=16)
+    keys = (length - k0).clamp(max=64)
+    per = rows[:, None] * keys[None, :]
+    near = int((per * ~far).sum()) * batch * heads
+    pad = torch.ones((batch, tiles * 64), dtype=torch.bool)
+    pad[:, :length] = mask.cpu() > 0
+    masked_tiles = (~pad.view(batch, tiles, 64)).any(-1)     # [B, tiles]
+    masked = int((masked_tiles.float() @ keys.float()).sum()) * length \
+        * heads
+    scores = batch * heads * length * length
+    ops = REL_OPS * scores + masked
+    loads = REL_LOADS * scores + near + 0.25 * masked
+    by_issue = (ops + loads) / PEAK_LANE_OPS
+    by_loads = loads / PEAK_SMEM_WORDS
+    return dict(floor_ms=max(by_issue, by_loads) * 1e3,
+                floor_by="issue" if by_issue >= by_loads else "shared loads",
+                near=near / scores)
+
+
 def check_flash_relbias(dev) -> dict:
     """flash_relbias against its plain version at B=2 and B=8 (the headline,
     MG's serving batch), H=16, L=1536, D=64, bf16. Bound: 4 B H L^2 D
     operations over the bf16 tensor rate (the bias costs no bytes: it is
-    computed in the kernel). No single PyTorch call builds the relative
+    computed in the kernel); beside it the CUDA-core floor of computing the
+    bias (`relbias_floor`). No single PyTorch call builds the relative
     bias, so library_ms is None; for scale only, SDPA over a prebuilt bf16
     slab (bias + mask) is timed and printed beside it."""
     import torch
@@ -773,9 +823,15 @@ def check_flash_relbias(dev) -> dict:
                    library_ms=None,
                    **bound(nbytes(q, k, v, hx, vy, mask, *tables, got),
                            4 * B * H * L * L * D))
+        floor = relbias_floor(mask, H)
         report("flash_relbias", f"B={B} H={H} L={L} D={D} bf16, 212 of "
                f"{L} keys padded (library: none; for scale, SDPA over a "
                f"prebuilt bf16 slab {sdpa_ms:.4f} ms)", res)
+        print(f"flash_relbias B={B}: CUDA-core floor of the bias "
+              f"{floor['floor_ms']:.4f} ms ({floor['floor_by']}; "
+              f"{floor['near']:.1%} of the scores on tiles near the "
+              f"diagonal), {floor['floor_ms'] / res['ms']:.1%} of the "
+              f"kernel's time", flush=True)
         del got, ref
         out["flash_relbias"] = res
     return out

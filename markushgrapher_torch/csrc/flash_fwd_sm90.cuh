@@ -1,41 +1,45 @@
-// One forward flash-attention core for Hopper (sm_90a), shared by the two
+// One forward flash-attention core for Hopper (sm_90a), shared by the three
 // encoder kernels: flash_i8.cu (an int8 bias slab times a per-head scale,
-// plus a key mask) and flash_bias.cu (a bf16 or float32 additive bias, and
-// the float32 log-sum-exp of each row for the backward kernels).
+// plus a key mask), flash_bias.cu (a bf16 or float32 additive bias, and the
+// float32 log-sum-exp of each row for the backward kernels) and
+// flash_relbias.cu (the UDOP relative bias computed in the kernel, no slab).
 //
-// Both compute, for bf16 q, k, v [B, L, H, 64] and query i, key j, head h
+// All compute, for bf16 q, k, v [B, L, H, 64] and query i, key j, head h
 // (T5 convention, no 1/sqrt(d)):
 //   s = q_i . k_j + bias(i, j),  out_i = sum_j p_j v_j / max(l, 1e-30)
 // with the softmax online in float32 from the finite start -1e30 (a tile
 // whose keys are all masked yields no NaN; the next valid tile's rescale
 // wipes its weights), p = 0 exactly for keys at or past L, bf16 output.
 //
-// Design (a bias policy, BiasI8 / BiasBF16 / BiasF32, is the only
-// difference between the kernels; the PTX helpers, the policies and the
-// tensor maps are sm90.cuh's, shared with the backward kernels):
+// Design (a bias policy, BiasI8 / BiasBF16 / BiasF32 / BiasRel, is the
+// only difference between the kernels; the PTX helpers, the slab policies
+// and the tensor maps are sm90.cuh's, shared with the backward kernels):
 // - One CTA per (b*h, tile of 192 query rows): three consumer warpgroups,
 //   each owning 64 rows, and one producer warpgroup of which one warp
 //   works. setmaxnreg moves registers from the producer (24) to the
 //   consumers (160). One CTA per SM: Q 24 KB and the ring, 138 KB in all
-//   (int8, four stages), 145 KB (bf16, three) or 217 KB (float32, three).
+//   (int8, four stages), 145 KB (bf16, three), 217 KB (float32, three) or
+//   92 KB (BiasRel, four, with its tables at L = 1536).
 // - The producer warp keeps the ring in flight. A stage holds a 64-key K
 //   tile and V tile (TMA, 4-D tensor maps (D, H, L, B) so that rows past L
 //   are zero-filled within each batch, 128-byte swizzle: one row of 64 bf16
-//   is one swizzle atom), the bias tile of the CTA's 192 query rows for
-//   those keys (TMA where the bias row stride is a multiple of 16 bytes,
-//   3-D map (L, L, B*H) with the 64-byte (int8) or 128-byte swizzle;
-//   otherwise the producer warp copies it element by element with
-//   zero-fill, into the same swizzled layout, since such rows are only 1-,
-//   2- or 4-byte aligned), and for BiasI8 the 64 key-mask terms (0 or
-//   -1e30) with a flag saying whether any is -1e30. Completion is signalled
-//   on the stage's `full` mbarrier (32 producer arrivals plus the TMA
-//   bytes); the consumers release it on its `empty` mbarrier.
-// - S = bias + Q K^T: each thread reads the bias at its accumulator-
-//   fragment positions from the stage into the accumulator registers
-//   (BiasI8: __fmul_rn(code, scale_h), then __fadd_rn(., mask_j) in tiles
-//   with a masked key, the plain version's order, adding a 0 mask term
-//   changes nothing; -1e30 for keys at or past L), then four
-//   wgmma.m64n64k16 (bf16 operands from shared memory, float32
+//   is one swizzle atom), for the slab policies the bias tile of the CTA's
+//   192 query rows for those keys (TMA where the bias row stride is a
+//   multiple of 16 bytes, 3-D map (L, L, B*H) with the 64-byte (int8) or
+//   128-byte swizzle; otherwise the producer warp copies it element by
+//   element with zero-fill, into the same swizzled layout, since such rows
+//   are only 1-, 2- or 4-byte aligned), for BiasI8 the 64 key-mask terms
+//   (0 or -1e30) and for BiasRel the 64 keys' box centres and mask (768
+//   bytes, no bias bytes), each with a flag saying whether any key is
+//   masked or at or past L. Completion is signalled on the stage's `full`
+//   mbarrier (32 producer arrivals plus the TMA bytes); the consumers
+//   release it on its `empty` mbarrier.
+// - S = bias + Q K^T: each thread puts the bias at its accumulator-fragment
+//   positions into the accumulator registers (slab policies: read from the
+//   stage; BiasI8: __fmul_rn(code, scale_h), then __fadd_rn(., mask_j) in
+//   tiles with a masked key, the plain version's order, adding a 0 mask term
+//   changes nothing; BiasRel: computed, below; -1e30 for keys at or past L),
+//   then four wgmma.m64n64k16 (bf16 operands from shared memory, float32
 //   accumulation) add the dots to it.
 // - The online softmax runs on the accumulator fragments: each thread holds
 //   16 scores of 2 rows, the 4 threads of a row meet by shuffles. e^x is
@@ -50,8 +54,33 @@
 //   that PV and is skipped by a warp whose row maxima did not move.
 // - Epilogue: IEEE division by max(l, 1e-30), bf16 pairs straight from the
 //   fragments to the output; lse = m + log(max(l, 1e-30)).
-
+//
+// BiasRel, bias = (t1[b1(j - i)] + th[bh]) + tv[bv] (mask_j ? bias : -1e30)
+// with bh the bucket of trunc((hx_j - hx_i) * scaling), bv the same over
+// vy, is bit-exact against relbias.centre_position_bias:
+// - At the CTA's start every thread helps compose each bucket LUT with its
+//   head's table column (pure indexing, no arithmetic) into shared memory:
+//   t1 over distances -(max1 + 96) .. max1 + 96 (saturated past max1, where
+//   the T5 buckets already are), th and tv over 0 .. max2 for each sign.
+//   Each term is then one shared load, not a LUT load and a table load.
+// - A thread keeps its two query rows' centres in registers and reads the
+//   key centres from the stage. The 2d index: d = (c_j - c_i) * scaling by
+//   __fsub_rn then __fmul_rn; n = floor(min(|d|, max2)) from the bits of
+//   __fadd_rz(min(|d|, max2), 2^23) (no float-to-int conversion, which runs
+//   at an eighth of the FP32 rate); the sign of d picks the table:
+//   trunc(d) clamped to +-max2, as the plain version's int32 cast and LUT.
+//   Then __fadd_rn(__fadd_rn(t1, th), tv) and the mask select, the plain
+//   order. About 17 FP32 / integer operations and 2-3 shared loads a score.
+// - The 1d term needs no arithmetic: on a tile whose keys are all at least
+//   max1 from the warp's 16 rows (on one side) it is one constant per side;
+//   on the others (about 5 of 24 tiles per warp at L = 1536) an immediate-
+//   offset load from a per-row pointer into the widened t1 table.
+// - Registers: the policy adds the rows' four centres, the two far-tile
+//   constants and five table addresses to the core's state (ptxas report in
+//   chip_smoke phase 2).
 #pragma once
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -68,29 +97,64 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 160;
 // the float32 policy over the CTA's kRows-row bias tiles
 using BiasF32 = BiasF32Rows<kRows>;
 
+// the relative bias computed in the kernel: the stage carries the keys'
+// centres and mask, no bias tile
+struct BiasRel {
+  using T = float;
+  static constexpr bool kKeyMask = false;
+  static constexpr bool kLse = false;
+  static constexpr int kStages = 4;
+};
+
+// BiasRel's 1d table spans distances -(max1 + kRelPad) .. max1 + kRelPad:
+// a tile that is not far from a warp's 16 rows holds distances within
+// max1 + 15 + 63 of them
+constexpr int kRelPad = 96;
+
 // Shared memory of a CTA (byte offsets from a 1024-aligned base): the Q
-// tiles of the warpgroups, the stages (K tile, V tile, bias tile), then for
-// BiasI8 the stages' 64 float mask terms and their any-masked flags.
+// tiles of the warpgroups, the stages (K tile, V tile, bias tile), then per
+// stage its keys' words (BiasI8: 64 float mask terms; BiasRel: 64 hx, 64
+// vy, 64 int mask) and a flag; BiasRel's composed tables follow (their
+// size depends on max1 and max2, rel_bytes).
 template <class P>
 struct Layout {
+  static constexpr bool kRel = std::is_same_v<P, BiasRel>;
   static constexpr int kStages = P::kStages;
-  static constexpr int kBiasBytes = kRows * kBN * (int)sizeof(typename P::T);
+  static constexpr int kBiasBytes =
+      kRel ? 0 : kRows * kBN * (int)sizeof(typename P::T);
   static constexpr int kStage0 = kWG * kTile;
   static constexpr int kStageBytes = 2 * kTile + kBiasBytes;
+  static constexpr int kKeyWords = P::kKeyMask ? 1 : kRel ? 3 : 0;
   static constexpr int kMask = kStage0 + kStages * kStageBytes;
-  static constexpr int kFlags = kMask + (P::kKeyMask ? kStages * kBN * 4 : 0);
-  static constexpr int kBytes = kFlags + (P::kKeyMask ? kStages * 4 : 0);
+  static constexpr int kFlags = kMask + kStages * kBN * 4 * kKeyWords;
+  static constexpr int kBytes = kFlags + (kKeyWords ? kStages * 4 : 0);
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
+
+// BiasRel's tables: t1 [2 (max1 + kRelPad) + 1], th+ th- tv+ tv- [max2 + 1]
+__host__ __device__ inline int rel_words(int max1, int max2) {
+  return 2 * (max1 + kRelPad) + 1 + 4 * (max2 + 1);
+}
 
 struct Params {
   const void* bias;      // [B or 1, H, L, L]; copied by the producer warp
                          // when bias_tma == 0
   const float* scales;   // [H] (BiasI8)
-  const int* key_mask;   // [B, L] (BiasI8)
+  const int* key_mask;   // [B, L] (BiasI8, BiasRel)
   bf16* out;             // [B, L, H, 64]
   float* lse;            // [B, H, L] (BiasBF16, BiasF32)
   int L, H, bias_batched, bias_tma;
+  // BiasRel: box centres [B, L], the tables [3, nb, H] (1d, horizontal,
+  // vertical), the bucket LUTs [2 max1 + 1] and [2 max2 + 1]
+  const float* hx;
+  const float* vy;
+  const float* tables;
+  const int* lut1;
+  const int* lut2;
+  int nb, max1, max2;
+  float scaling;
+  float* scores;  // [B, H, L, L]: the debug instance stores each score's
+                  // bias term (the accumulator's start) here
 };
 
 // ---- the online softmax on the fragments
@@ -171,9 +235,83 @@ __device__ __forceinline__ void rescale(float (&acc)[32], float al0,
   }
 }
 
+// ---- BiasRel: the bias terms of a thread's 32 scores, computed
+
+// a thread's state for BiasRel: its two rows' centres, its pointer into the
+// 1d table, the far-tile constants, the 2d tables' addresses
+struct RelRows {
+  float hx0, hx1, vy0, vy1;  // rows r and r + 8
+  const float* t1;           // t1 of key cq (+ k0) against row r
+  float tpos, tneg;          // t1 at distance +max1 and -max1
+  // th+, th-, tv+, tv-: shared addresses less 4 * 0x4B000000, so that the
+  // bits of 2^23 + n shifted by 2 land on entry n
+  uint32_t thp, thn, tvp, tvn;
+  float scaling, lim;
+};
+
+// the 2d term of a key at centre ck against a row at ci: entry
+// trunc((ck - ci) * scaling), clamped to +-max2, of the table pair (pos,
+// neg) (the sign of the difference picks the table, its floor of |d| the
+// entry)
+__device__ __forceinline__ float rel2(float ck, float ci, float scaling,
+                                      float lim, uint32_t pos, uint32_t neg) {
+  const float d = __fmul_rn(__fsub_rn(ck, ci), scaling);
+  const uint32_t n =
+      __float_as_uint(__fadd_rz(fminf(fabsf(d), lim), 8388608.f));
+  float v;
+  asm("ld.shared.f32 %0, [%1];"
+      : "=f"(v)
+      : "r"((d < 0.f ? neg : pos) + (n << 2)));
+  return v;
+}
+
+// the bias of the thread's 32 scores of the tile at k0 into s: key pairs
+// 8 j + cq of the stage's centres kh / kv and mask km (masked: some key of
+// the tile is masked or at or past L; such keys score -1e30). kNear: the
+// 1d term from the table, else the constant t1c.
+template <bool kNear>
+__device__ __forceinline__ void rel_bias(float (&s)[32], const float* kh,
+                                         const float* kv, const int* km,
+                                         bool masked, int k0, int cq,
+                                         const RelRows& R, float t1c) {
+  const float* t1a = R.t1 + k0;  // row r
+  const float* t1b = t1a - 8;    // row r + 8
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 ch = *reinterpret_cast<const float2*>(kh + 8 * j + cq);
+    const float2 cv = *reinterpret_cast<const float2*>(kv + 8 * j + cq);
+    float a0 = t1c, a1 = t1c, b0 = t1c, b1 = t1c;
+    if constexpr (kNear) {
+      a0 = t1a[8 * j];
+      a1 = t1a[8 * j + 1];
+      b0 = t1b[8 * j];
+      b1 = t1b[8 * j + 1];
+    }
+    s[4 * j] = __fadd_rn(
+        __fadd_rn(a0, rel2(ch.x, R.hx0, R.scaling, R.lim, R.thp, R.thn)),
+        rel2(cv.x, R.vy0, R.scaling, R.lim, R.tvp, R.tvn));
+    s[4 * j + 1] = __fadd_rn(
+        __fadd_rn(a1, rel2(ch.y, R.hx0, R.scaling, R.lim, R.thp, R.thn)),
+        rel2(cv.y, R.vy0, R.scaling, R.lim, R.tvp, R.tvn));
+    s[4 * j + 2] = __fadd_rn(
+        __fadd_rn(b0, rel2(ch.x, R.hx1, R.scaling, R.lim, R.thp, R.thn)),
+        rel2(cv.x, R.vy1, R.scaling, R.lim, R.tvp, R.tvn));
+    s[4 * j + 3] = __fadd_rn(
+        __fadd_rn(b1, rel2(ch.y, R.hx1, R.scaling, R.lim, R.thp, R.thn)),
+        rel2(cv.y, R.vy1, R.scaling, R.lim, R.tvp, R.tvn));
+    if (masked) {
+      const int2 m = *reinterpret_cast<const int2*>(km + 8 * j + cq);
+      if (!m.x) s[4 * j] = s[4 * j + 2] = kNegInf;
+      if (!m.y) s[4 * j + 1] = s[4 * j + 3] = kNegInf;
+    }
+  }
+}
+
 // ---- the kernel body
 
-template <class P>
+// kDebug: also store each score's bias term (the accumulator's start, before
+// Q K^T adds to it) to p.scores; a separate instance, on no serving path
+template <class P, bool kDebug = false>
 __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
                                           const CUtensorMap& tk,
                                           const CUtensorMap& tv,
@@ -181,6 +319,7 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
                                           const Params& p) {
   using Lay = Layout<P>;
   using T = typename P::T;
+  constexpr bool kRel = Lay::kRel;
   constexpr int S = Lay::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[S], empty[S], qbar;
@@ -194,6 +333,7 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
   auto stage_of = [&](int t) {
     return smem + Lay::kStage0 + (t % S) * Lay::kStageBytes;
   };
+  float* rel_tab = reinterpret_cast<float*>(smem + Lay::kBytes);
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -203,6 +343,22 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
     }
     mbar_init(&qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (kRel) {
+    // each bucket LUT composed with this head's table column
+    const int E = p.max1 + kRelPad, n1 = 2 * E + 1, n2 = p.max2 + 1;
+    for (int u = threadIdx.x; u < n1; u += kThreads) {
+      const int rel = min(max(u - E, -p.max1), p.max1);
+      rel_tab[u] = p.tables[(size_t)p.lut1[rel + p.max1] * H + h];
+    }
+    // th+, th-, tv+, tv-: entry n at distance +n or -n
+    for (int u = threadIdx.x; u < 4 * n2; u += kThreads) {
+      const int which = u / n2, n = u % n2;
+      const int idx = p.max2 + ((which & 1) ? -n : n);
+      rel_tab[n1 + u] =
+          p.tables[((size_t)(1 + (which >> 1)) * p.nb + p.lut2[idx]) * H +
+                   h];
+    }
   }
   __syncthreads();
 
@@ -222,40 +378,54 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
       const int s = t % S;
       const int k0 = t * kBN;
       uint8_t* stage = stage_of(t);
-      uint8_t* btile = stage + 2 * kTile;
       mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
-      if constexpr (P::kKeyMask) {
-        float* mk = reinterpret_cast<float*>(smem + Lay::kMask) + s * kBN;
+      if constexpr (Lay::kKeyWords > 0) {
+        float* kd = reinterpret_cast<float*>(smem + Lay::kMask) +
+                    s * kBN * Lay::kKeyWords;
         bool any = false;
         for (int c = lane; c < kBN; c += 32) {
           const int j = k0 + c;
-          const bool on = j < L && p.key_mask[(size_t)b * L + j] > 0;
-          mk[c] = on ? 0.f : kNegInf;
+          const size_t at = (size_t)b * L + (j < L ? j : 0);
+          const bool on = j < L && p.key_mask[at] > 0;
+          if constexpr (kRel) {
+            // the keys' centres and mask (keys at or past L are masked)
+            kd[c] = p.hx[at];
+            kd[kBN + c] = p.vy[at];
+            reinterpret_cast<int*>(kd)[2 * kBN + c] = on;
+          } else {
+            kd[c] = on ? 0.f : kNegInf;
+          }
           any |= !on;
         }
         any = __any_sync(0xffffffffu, any);
         if (lane == 0) reinterpret_cast<int*>(smem + Lay::kFlags)[s] = any;
       }
-      if (!p.bias_tma) {
-        const T* src = static_cast<const T*>(p.bias) + (size_t)bhb * L * L;
-        for (int e = lane; e < kRows * kBN; e += 32) {
-          const int r = e / kBN, c = e % kBN;
-          const int i = q0 + r, j = k0 + c;
-          T val{};
-          if (i < L && j < L) val = src[(size_t)i * L + j];
-          *reinterpret_cast<T*>(btile + P::offset(r, c)) = val;
+      if constexpr (!kRel) {
+        if (!p.bias_tma) {
+          uint8_t* btile = stage + 2 * kTile;
+          const T* src = static_cast<const T*>(p.bias) + (size_t)bhb * L * L;
+          for (int e = lane; e < kRows * kBN; e += 32) {
+            const int r = e / kBN, c = e % kBN;
+            const int i = q0 + r, j = k0 + c;
+            T val{};
+            if (i < L && j < L) val = src[(size_t)i * L + j];
+            *reinterpret_cast<T*>(btile + P::offset(r, c)) = val;
+          }
         }
       }
       if (lane == 0) {
         mbar_arrive_tx(&full[s], tx);
         tma_4d(stage, tk, &full[s], 0, h, k0, b);
         tma_4d(stage + kTile, tv, &full[s], 0, h, k0, b);
-        if (p.bias_tma) {
+        if constexpr (!kRel) {
+          if (p.bias_tma) {
+            uint8_t* btile = stage + 2 * kTile;
 #pragma unroll
-          for (int c = 0; c < kBN; c += P::kBoxCols)
-            tma_3d(btile + (c / P::kBoxCols) * kRows * P::kBoxCols *
-                               (int)sizeof(T),
-                   tb, &full[s], k0 + c, q0, bhb);
+            for (int c = 0; c < kBN; c += P::kBoxCols)
+              tma_3d(btile + (c / P::kBoxCols) * kRows * P::kBoxCols *
+                                 (int)sizeof(T),
+                     tb, &full[s], k0 + c, q0, bhb);
+          }
         }
       } else {
         mbar_arrive(&full[s]);
@@ -273,6 +443,7 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
   const int r = (warp % 4) * 16 + lane / 4;
   const int brow = wg * kBM + r;  // row in the CTA's bias tile
   const int cq = 2 * (lane % 4);
+  const int i0 = q0 + brow, i1 = i0 + 8;
   float scale = 0.f;
   if constexpr (P::kKeyMask) scale = p.scales[h];
   const float* masks = reinterpret_cast<const float*>(smem + Lay::kMask);
@@ -287,11 +458,57 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
     mbar_wait(&full[t % S], (t / S) & 1);
     __syncwarp();
   };
-  const int a0 = P::offset(brow, cq), a1 = P::offset(brow + 8, cq);
+  RelRows R{};
+  const int iw = q0 + wg * kBM + (warp % 4) * 16;  // the warp's first row
+  if constexpr (kRel) {
+    const float* row_hx = p.hx + (size_t)b * L;
+    const float* row_vy = p.vy + (size_t)b * L;
+    R.hx0 = row_hx[min(i0, L - 1)];
+    R.hx1 = row_hx[min(i1, L - 1)];
+    R.vy0 = row_vy[min(i0, L - 1)];
+    R.vy1 = row_vy[min(i1, L - 1)];
+    const int E = p.max1 + kRelPad, n2 = p.max2 + 1;
+    R.t1 = rel_tab + E + cq - i0;
+    R.tpos = rel_tab[E + p.max1];
+    R.tneg = rel_tab[E - p.max1];
+    const uint32_t base = smem_u32(rel_tab + 2 * E + 1) - (0x4B000000u << 2);
+    R.thp = base;
+    R.thn = base + 4 * n2;
+    R.tvp = base + 8 * n2;
+    R.tvn = base + 12 * n2;
+    R.scaling = p.scaling;
+    R.lim = (float)p.max2;
+  }
   auto bias_of = [&](int t) {  // into s
-    const int tile = Lay::kStage0 + (t % S) * Lay::kStageBytes + 2 * kTile;
-    load_bias<P>(s, smem, tile + a0, tile + a1, masks + (t % S) * kBN,
-                 P::kKeyMask && flags[t % S], scale, cq, t * kBN, L);
+    const int k0 = t * kBN;
+    if constexpr (kRel) {
+      const float* kd = reinterpret_cast<const float*>(smem + Lay::kMask) +
+                        (t % S) * 3 * kBN;
+      const int* km = reinterpret_cast<const int*>(kd + 2 * kBN);
+      const bool masked = flags[t % S];
+      if (k0 - (iw + 15) >= p.max1)
+        rel_bias<false>(s, kd, kd + kBN, km, masked, k0, cq, R, R.tpos);
+      else if (k0 + kBN - 1 - iw <= -p.max1)
+        rel_bias<false>(s, kd, kd + kBN, km, masked, k0, cq, R, R.tneg);
+      else
+        rel_bias<true>(s, kd, kd + kBN, km, masked, k0, cq, R, 0.f);
+    } else {
+      const int a0 = P::offset(brow, cq), a1 = P::offset(brow + 8, cq);
+      const int tile = Lay::kStage0 + (t % S) * Lay::kStageBytes + 2 * kTile;
+      load_bias<P>(s, smem, tile + a0, tile + a1, masks + (t % S) * kBN,
+                   P::kKeyMask && flags[t % S], scale, cq, k0, L);
+    }
+    if constexpr (kDebug) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? i0 : i1, c = k0 + 8 * j + cq + (e & 1);
+          if (i < L && c < L)
+            p.scores[((size_t)bh * L + i) * L + c] = s[4 * j + e];
+        }
+      }
+    }
   };
   mbar_wait(&qbar, 0);
   __syncwarp();
@@ -347,7 +564,6 @@ __device__ __forceinline__ void flash_fwd(const CUtensorMap& tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int i0 = q0 + wg * kBM + r, i1 = i0 + 8;
   if (i0 < L) {
     __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
         p.out + (((size_t)b * L + i0) * H + h) * kD + cq);
@@ -378,7 +594,8 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
                         const CUtensorMap, const CUtensorMap, const Params);
 
 // Build the tensor maps (the bias by TMA only where its row stride and base
-// allow it) and launch one CTA per (b*h, kRows query rows).
+// allow it; BiasRel has none) and launch one CTA per (b*h, kRows query
+// rows).
 template <class P>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
            Params p, int B, cudaStream_t stream) {
@@ -391,16 +608,25 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
   if (!qkv_map(&tq, q, B, p.L, p.H) || !qkv_map(&tk, k, B, p.L, p.H) ||
       !qkv_map(&tv, v, B, p.L, p.H))
     return (int)cudaErrorInvalidValue;
-  p.bias_tma = bias_tma_ok<P>(p.L, p.bias);
-  if (p.bias_tma &&
-      !bias_map<P>(&tb, p.bias, (p.bias_batched ? B : 1) * p.H, p.L,
-                    kRows))
-    return (int)cudaErrorInvalidValue;
+  int smem = Layout<P>::kAlloc;
+  if constexpr (std::is_same_v<P, BiasRel>) {
+    p.bias_tma = 0;
+    if (p.nb <= 0 || p.max1 < 0 || p.max2 < 0)
+      return (int)cudaErrorInvalidValue;
+    smem += rel_words(p.max1, p.max2) * 4;
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  } else {
+    p.bias_tma = bias_tma_ok<P>(p.L, p.bias);
+    if (p.bias_tma &&
+        !bias_map<P>(&tb, p.bias, (p.bias_batched ? B : 1) * p.H, p.L,
+                      kRows))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<P>::kAlloc);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.L + kRows - 1) / kRows, B * p.H);
-  kernel<<<grid, kThreads, Layout<P>::kAlloc, stream>>>(tq, tk, tv, tb, p);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, tb, p);
   return (int)cudaGetLastError();
 }
 

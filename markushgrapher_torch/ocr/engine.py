@@ -7,10 +7,13 @@ then loc-grammar parsing into the `cells` column, and `predict_to_disk`'s
 DatasetDict save: the reference's stage-1 / stage-2 on-disk contract
 (`markushgrapher/ocr/chemical_ocr.py:396-478`).
 
-Not ported yet (ROADMAP queue 1 item 7): continuous batching
-(`stream=True` raises; `generate_stream` / `stream_retired`), and the JAX
-config's W8A8 and int4 decode weights (`act_quant`, `weight_bits`, refused
-by `build_ocr_configs` as unknown keys). The engine runs on the CUDA device
+`OCREngineConfig` has every field of the JAX config. Not ported yet, and
+refused by name: continuous batching (`stream=True`, or `refill_batch` /
+`stream_inner` away from their defaults; `generate_stream` /
+`stream_retired`), int4 decode weights (`weight_bits=4`) and W8A8 decode
+dots (`act_quant=True`). `mega_block_s` picks the TPU kernel's ring block
+and changes nothing here (the megastep reads the ring in chunks that fit
+shared memory). The engine runs on the CUDA device
 unless the caller passes `device="cpu"`. It takes a built model, as the
 reference's does: valid-prefix ring reads are the model's flag
 (`ChemicalOCRModel(cfg, block_skip=True)`).
@@ -45,14 +48,28 @@ class OCREngineConfig:
     quant_weights: bool = False     # int8 decode-step weights (serving mode)
     quant_kv: bool = False          # int8 KV rings (serving mode)
     int4_kv: bool = False           # pack the KV rings to int4 (needs quant_kv)
+    weight_bits: int = 8            # 8 only: int4 decode weights not ported
+    act_quant: bool = False         # False only: W8A8 not ported
     megastep: bool = False          # whole-step decode kernel, int8 weights
+    mega_block_s: int = 0           # the TPU kernel's ring block: no effect
     stream: bool = False            # continuous batching: not ported yet
+    refill_batch: int = 8           # stream refill wave size (stream only)
+    stream_inner: int = 64          # stream steps per readback (stream only)
 
     def __post_init__(self):
-        if self.stream:
+        if self.stream or (self.refill_batch, self.stream_inner) != (8, 64):
             raise ValueError(
-                "OCREngineConfig: stream=True (continuous batching) is not "
-                "ported yet (ROADMAP queue 1 item 7); use the batched engine")
+                "OCREngineConfig: continuous batching (stream=True, "
+                "refill_batch, stream_inner) is not ported yet; use the "
+                "batched engine")
+        if self.weight_bits != 8:
+            raise ValueError(
+                f"OCREngineConfig: int4 decode weights (weight_bits="
+                f"{self.weight_bits}) are not ported yet; weight_bits=8")
+        if self.act_quant:
+            raise ValueError(
+                "OCREngineConfig: W8A8 decode dots (act_quant=True) are not "
+                "ported yet")
         if self.int4_kv and not self.quant_kv:
             raise ValueError(
                 "OCREngineConfig: int4_kv=True requires quant_kv=True — "

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
-(the two decode kernels, the lattice kernel and the OCR megastep share
-`decode_common.cuh`; the two encoder flash forwards `flash_fwd_sm90.cuh`,
-which with the float-bias backward shares the Hopper pieces of `sm90.cuh`;
-the in-kernel-bias flash forward includes `flash_bias.cuh`). At first use
+(the two decode kernels and the lattice kernel share `decode_common.cuh`;
+the three encoder flash forwards, over the int8 slab, the float slab and
+the in-kernel relative bias, are bias policies of `flash_fwd_sm90.cuh`,
+which with the float-bias backward and the OCR megastep shares the Hopper
+pieces of `sm90.cuh`). At first use
 they are compiled with nvcc for Hopper (`sm_90a`), one nvcc process per
 source, all started together, and linked into one shared library under
 `markushgrapher_torch/_build/` (named by a hash of the sources and flags,
@@ -81,6 +82,8 @@ _SIGNATURES = {
     # q, k, v, hx, vy, mask, tables, lut1, lut2, B, L, H, D, nb, max1, max2,
     # scaling, out, stream
     "mg_flash_relbias": [_P] * 9 + [_I] * 7 + [_F, _P, _P],
+    # the same, then the bias terms' buffer, stream
+    "mg_flash_relbias_scores": [_P] * 9 + [_I] * 7 + [_F, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -25,6 +25,19 @@ These are the JAX kernel's rounding points. Its ring attention is an online
 softmax over ring blocks; with one block (the JAX choice for rings up to
 8 MB of K+V, which covers the OCR rings) it is the two-part form above.
 
+Each float32 sum is taken in the CUDA kernel's order and rounding, so that
+the plain version rounds every bf16 point (h, the RoPE's rotated half, attn,
+mid) as the kernel does: a sum one ulp apart flips a bf16 value now and
+then, and one flip of h or mid in a layer moves the next layer's K/V scales
+by ~1e-3. The GEMVs and the ring scores add 16 products per tensor-core
+step, exactly, into a float32 accumulator rounded toward zero (the tensor
+cores' truncation: on an H100, `megastep_parts.py` finds the kernel's QKV
+output in all but 0.4 % of values, where round-to-nearest float32 matmuls
+differ in 10-29 %), over the kernel's split of the columns among 8 warps,
+whose partial sums are then added in order. The RMSNorm statistic,
+the softmax's sum, the P V sums and the new token's score follow the
+kernel's lane and warp reductions (`_lanes`, `_butterfly`).
+
 Layout (`pack_lm`): weights [L, out, in] int8 (q, k, v rows stacked; gate
 rows then up rows), scales [L, out] float32, RMSNorm weights [L, D]
 float32; rings k_q / v_q [L, B, S, G*D] int8, k_s / v_s [L, B, G, S]
@@ -36,6 +49,7 @@ A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence
 
 import torch
@@ -75,9 +89,94 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+# the kernel's warps and threads per block
+_WARPS = _THREADS // 32
+
+
+def _butterfly(v: torch.Tensor, offsets) -> torch.Tensor:
+    """The sum over the last dim that lane 0 holds after xor shuffles by
+    `offsets`, in that order (each lane adds its partner's value)."""
+    idx = torch.arange(v.shape[-1], device=v.device)
+    for o in offsets:
+        v = v + v[..., idx ^ o]
+    return v[..., 0]
+
+
+def _lanes(v: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., K] -> [..., n]: lane j's sum of elements j, j + n, ... in order
+    (from 0), as a strided loop over K gives each of n threads; n = 1: the
+    sum in order."""
+    k = v.shape[-1]
+    v = torch.nn.functional.pad(v, (0, -k % n))
+    out = torch.zeros(v.shape[:-1] + (n,), dtype=v.dtype, device=v.device)
+    for r in range(v.shape[-1] // n):
+        out = out + v[..., r * n:(r + 1) * n]
+    return out
+
+
+def _rz32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero, back in float64."""
+    f = x.to(torch.float32)
+    over = f.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
+                       f).to(torch.float64)
+
+
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    var = x.square().mean(dim=-1, keepdim=True)
+    """bf16(x rsqrt(mean x^2 + eps) w); the sum of squares as the kernel
+    takes it: per 16-column tile over 16 lanes, then the tiles over a
+    warp."""
+    b, dm = x.shape
+    sq = torch.nn.functional.pad(x * x, (0, -dm % 16)).view(b, -1, 16)
+    tiles = _butterfly(sq, (8, 4, 2, 1))
+    ss = _butterfly(_lanes(tiles, 32), (16, 8, 4, 2, 1))
+    var = (ss / dm)[:, None]
     return _bf16(x * torch.rsqrt(var + eps) * w)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_steps(k: int) -> torch.Tensor:
+    """The columns of each tensor-core step of a GEMV over k columns (k:
+    past the end), by warp in issue order: [rounds, 8, 16]. Chunk c of 64
+    columns goes to warp c % 8, as four steps of columns 16 t + 4 s + e
+    (t, e < 4); the columns past the last chunk in steps of 16, step u to
+    warp (chunks + u) % 8."""
+    full = k // 64
+    per_warp = [[] for _ in range(_WARPS)]
+    for c in range(full):
+        for s in range(4):
+            per_warp[c % _WARPS].append(
+                [c * 64 + 16 * t + 4 * s + e for t in range(4)
+                 for e in range(4)])
+    for u in range(-(-(k - 64 * full) // 16)):
+        per_warp[(full + u) % _WARPS].append(
+            [min(64 * full + 16 * u + j, k) for j in range(16)])
+    rounds = max(len(p) for p in per_warp)
+    idx = torch.full((rounds, _WARPS, 16), k, dtype=torch.long)
+    for w, steps in enumerate(per_warp):
+        if steps:
+            idx[:len(steps), w] = torch.tensor(steps)
+    return idx
+
+
+def _tc_steps(acc: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+    """Add exact step sums [R, ...] into a float32 accumulator, each
+    rounded toward zero, as tensor-core steps do."""
+    for r in range(sums.shape[0]):
+        acc = _rz32(acc + sums[r])
+    return acc
+
+
+def _tc_dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h [B, K] (bf16 values) . int8 w [N, K]^T as the kernel's GEMV sums
+    it: each warp's tensor-core steps (`_gemv_steps`), then the warps'
+    partial sums in order. float32 [B, N]."""
+    idx = _gemv_steps(h.shape[1]).to(h.device)
+    hp = torch.nn.functional.pad(h.to(torch.float64), (0, 1))[:, idx]
+    wp = torch.nn.functional.pad(w.to(torch.float64), (0, 1))[:, idx]
+    sums = torch.einsum("brwk,nrwk->rbnw", hp, wp)  # exact in float64
+    part = _tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
+    return _lanes(part, 1)[..., 0]
 
 
 def _rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -97,7 +196,57 @@ def _quantize(t: torch.Tensor):
 
 def _wdot(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
     """(h . W^T) * s: bf16-valued float32 rows against int8 [out, in]."""
-    return (h @ w.to(torch.float32).T) * s
+    return _tc_dot(h, w) * s
+
+
+def _ring_attention(qs, kr, vr, ks, vs, kdq, vdq):
+    """One layer's attention of qs [B, H, D] (bf16 values) over the ring
+    prefix kr / vr [B, p, H, D] (int8 values) with scales ks / vs [B, H, p]
+    and the new token's dequantised kdq / vdq [B, H, D]: float32 [B, H, D]
+    before the bf16 rounding, every sum in the kernel's order."""
+    b, heads, d = qs.shape
+    p = kr.shape[1]
+    if d % 16 == 0:
+        # scores on the tensor cores: 16 dims a step, into a zero
+        # accumulator rounded toward zero
+        sums = torch.stack([torch.einsum(
+            "bhd,bkhd->bhk", qs[..., d0:d0 + 16].to(torch.float64),
+            kr[..., d0:d0 + 16].to(torch.float64))
+            for d0 in range(0, d, 16)])
+        c = _tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
+    else:
+        # on the CUDA cores: fma over d in order (the products are exact)
+        c = _lanes(qs[:, :, None] * kr.transpose(1, 2), 1)[..., 0]
+    s = c * ks
+    m = s.amax(dim=-1, keepdim=True) if p else torch.full(
+        (b, heads, 1), -torch.inf, device=qs.device)
+    e = torch.exp(s - m)
+    pv = _bf16(e * vs)
+    # l: each thread's strided keys, a warp's lanes, then the warps in order
+    den = _lanes(_butterfly(_lanes(e, _THREADS).view(b, heads, _WARPS, 32),
+                            (16, 8, 4, 2, 1)), 1)
+    # P V: thread (key lane kl, column block) sums keys kl, kl + KL, ...;
+    # the key lanes of a warp meet by shuffles, then the warps in order
+    cw = 16 if d % 16 == 0 else 4
+    cpr = d // cw
+    kl_n = _THREADS // cpr
+    prod = (pv[..., None] * vr.transpose(1, 2)).transpose(-1, -2)
+    acc = _lanes(prod, kl_n).view(b, heads, d, _WARPS, kl_n // _WARPS)
+    offsets = [o for o in (1, 2, 4, 8, 16) if o < 32 // cpr]
+    o = _lanes(_butterfly(acc, offsets), 1)[..., 0]
+    # the new token's score: fma over lanes' strided dims, then the warp
+    qd = qs.to(torch.float64) * kdq.to(torch.float64)   # exact
+    qd = torch.nn.functional.pad(qd, (0, -d % 32))
+    sl = torch.zeros((b, heads, 32), device=qs.device)
+    for r in range(qd.shape[-1] // 32):
+        sl = (sl.to(torch.float64) + qd[..., r * 32:(r + 1) * 32]).to(
+            torch.float32)
+    s_new = _butterfly(sl, (16, 8, 4, 2, 1))[..., None]
+    m_new = torch.maximum(m, s_new)
+    alpha = torch.exp(m - m_new)
+    p_new = torch.exp(s_new - m_new)
+    return (o * alpha + p_new * vdq) / (den * alpha + p_new).clamp(
+        min=1e-30)
 
 
 def plain_megastep(x: torch.Tensor, rings: Dict[str, torch.Tensor],
@@ -128,19 +277,9 @@ def plain_megastep(x: torch.Tensor, rings: Dict[str, torch.Tensor],
             b, pos, groups, d)[:, :, hm]                     # [B, p, H, D]
         vr = rings["v_q"][layer, :, :pos].to(torch.float32).reshape(
             b, pos, groups, d)[:, :, hm]
-        s = torch.einsum("bhd,bkhd->bhk", qs, kr) \
-            * rings["k_s"][layer, :, :, :pos][:, hm]
-        m = s.amax(dim=-1, keepdim=True)
-        e = torch.exp(s - m)
-        pv = _bf16(e * rings["v_s"][layer, :, :, :pos][:, hm])
-        acc = torch.einsum("bhk,bkhd->bhd", pv, vr)
-        s_new = (qs * kdq[:, hm]).sum(dim=-1, keepdim=True)
-        m_new = torch.maximum(m, s_new)
-        alpha = torch.exp(m - m_new)
-        p_new = torch.exp(s_new - m_new)
-        den = e.sum(dim=-1, keepdim=True) * alpha + p_new
-        acc = acc * alpha + p_new * vdq[:, hm]
-        attn = _bf16(acc / den.clamp(min=1e-30))
+        attn = _bf16(_ring_attention(
+            qs, kr, vr, rings["k_s"][layer, :, :, :pos][:, hm],
+            rings["v_s"][layer, :, :, :pos][:, hm], kdq[:, hm], vdq[:, hm]))
         xs = xs + _wdot(attn.reshape(b, dq), w["wo"][layer], w["so"][layer])
         h = _rms(xs, w["ln_mlp"][layer], rms_eps)
         g, u = _wdot(h, w["wgu"][layer], w["sgu"][layer]).split(f, dim=-1)

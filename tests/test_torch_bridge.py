@@ -25,7 +25,8 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", np.asarray(v)
 
 
-@pytest.mark.parametrize("variant", ["none", "me-lf-stack-1"])
+@pytest.mark.parametrize("variant", ["none", "me-lf-stack-1",
+                                     "me-lf-stack-1-molscribe-only"])
 def test_round_trip_bit_equal(variant):
     cfg = MarkushGrapherConfig(
         vtl=VTLConfig(vocab_size=128, d_model=32, d_kv=4, d_ff=64,
@@ -59,7 +60,10 @@ def test_round_trip_bit_equal(variant):
         assert got[name].shape == arr.shape, name
         assert got[name].dtype == np.float32
         np.testing.assert_array_equal(got[name], arr, err_msg=name)
-    # torch Linear layout [out, in]
-    assert sd["encoder.layer_0.ff.wi.weight"].shape == (64, 32)
+    # torch Linear layout [out, in] (the molscribe-only variant has no VTL
+    # encoder: its decoder's)
+    stack = "decoder" if variant == "me-lf-stack-1-molscribe-only" \
+        else "encoder"
+    assert sd[f"{stack}.layer_0.ff.wi.weight"].shape == (64, 32)
     assert torch.equal(sd["lm_head.weight"],
                        torch.tensor(tree["params"]["lm_head"]["kernel"].T))

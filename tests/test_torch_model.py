@@ -87,7 +87,8 @@ def torch_encode(model, batch):
                         t["pixel_values"], t["ocsr_pixel_values"])
 
 
-@pytest.fixture(scope="module", params=["none", "me-lf-stack-1"])
+@pytest.fixture(scope="module", params=["none", "me-lf-stack-1",
+                                        "me-lf-stack-1-molscribe-only"])
 def pair(request):
     return torch_pair(request.param)
 
@@ -167,7 +168,8 @@ def test_encoder_valid_max_matches(pair):
     assert got == want
 
 
-@pytest.mark.parametrize("variant", ["none", "me-lf-stack-1"])
+@pytest.mark.parametrize("variant", ["none", "me-lf-stack-1",
+                                     "me-lf-stack-1-molscribe-only"])
 def test_ragged_length_encode_goes_through_kernel_wrappers(variant,
                                                            monkeypatch):
     """At a fused length that is no 256-multiple (200 text + 16 patches) the
@@ -175,7 +177,9 @@ def test_ragged_length_encode_goes_through_kernel_wrappers(variant,
     every layer (no quiet switch to another path). The JAX reference serves
     this length with a float bias, so the states differ by the int8 slab's
     rounding (at most half a step, max|table sum| / 254, per bias entry):
-    measured 2.2e-3 of the largest state here, held to 1e-2."""
+    measured 2.2e-3 of the largest state here, held to 1e-2. The
+    molscribe-only variant has no VTL encoder: no bias or flash call, and
+    its states are the OCSR branch's, held the same way."""
     from markushgrapher_torch.ops import bias_build, flash_attention
 
     calls = {"bias": 0, "flash": 0}
@@ -200,7 +204,8 @@ def test_ragged_length_encode_goes_through_kernel_wrappers(variant,
     model = tmg.MarkushGrapherModel(cfg, bias_int8=True)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     enc_t, mask_t = torch_encode(model, batch)
-    assert calls == {"bias": 1, "flash": cfg.vtl.num_layers}
+    vtl = variant != "me-lf-stack-1-molscribe-only"
+    assert calls == {"bias": int(vtl), "flash": cfg.vtl.num_layers * vtl}
     enc_j, mask_j = jax_encode(cfg, params, batch)
     np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
     ref = np.asarray(enc_j)

@@ -199,14 +199,34 @@ def test_engine_config_refusals_match_jax(kw):
 
 
 def test_engine_config_refuses_unported():
-    """Continuous batching raises until it is ported; the JAX config's
-    int4 / W8A8 decode-weight keys are unknown to the port's."""
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """Continuous batching raises until it is ported, and so do the JAX
+    config's int4 / W8A8 decode-weight values, each naming its feature."""
+    with pytest.raises(ValueError, match="continuous batching"):
         t_eng.OCREngineConfig(stream=True)
-    for key, value in (("weight_bits", 4), ("act_quant", True)):
+    for key, value, feature in (("weight_bits", 4, "int4 decode weights"),
+                                ("act_quant", True, "W8A8"),
+                                ("refill_batch", 16, "continuous batching"),
+                                ("stream_inner", 8, "continuous batching")):
         j_eng.build_ocr_configs({key: value})
-        with pytest.raises(ValueError, match="unknown"):
+        with pytest.raises(ValueError, match=feature):
             t_eng.build_ocr_configs({key: value})
+
+
+def test_engine_config_takes_every_jax_field():
+    """Every field of the JAX OCREngineConfig, at its JAX default, builds in
+    the port, one at a time and all together; mega_block_s (the TPU ring
+    block) at any value; weight_bits=4 raises."""
+    jax_fields = dataclasses.fields(j_eng.OCREngineConfig)
+    defaults = {f.name: f.default for f in jax_fields}
+    for name, value in defaults.items():
+        _, eng = t_eng.build_ocr_configs({name: value})
+        assert getattr(eng, name) == value
+    _, eng = t_eng.build_ocr_configs(defaults)
+    assert {f.name: getattr(eng, f.name) for f in jax_fields} == defaults
+    assert t_eng.build_ocr_configs({"mega_block_s": 256})[1].mega_block_s \
+        == 256
+    with pytest.raises(ValueError, match="weight_bits=4"):
+        t_eng.build_ocr_configs({"weight_bits": 4})
 
 
 def test_empty_input_and_device():
