@@ -13,8 +13,9 @@ prints no result):
 2. build: compiles the port's CUDA kernels from `markushgrapher_torch/csrc`
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
    spills and static shared memory of the wgmma kernels (the three encoder
-   forwards and the two float-bias backward kernels) and of the OCR
-   megastep (one instantiation per batch tiling);
+   forwards and the two float-bias backward kernels), of the OCR
+   megastep (one instantiation per batch tiling) and of decode_int4 (one
+   instantiation per count of query rows a CTA serves);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
@@ -32,7 +33,8 @@ prints no result):
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
    p = L0 + 400, and at batch 48 (MEGA_BATCH) at p = L0 + 400;
    decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv heads) over that
-   ring. The float-bias flash forward at its serving shapes
+   ring; decode_int4 also with the 5 beams folded over the greedy cross's
+   1792 keys, beside the greedy cross over the same slab. The float-bias flash forward at its serving shapes
    (B=2, B=8) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
    SDPA with the bias as attn_mask as the library yardstick (SDPA's one
@@ -80,7 +82,9 @@ prints no result):
    batch 8 and 48, beam-5 (int4) over one ring segment, segments of 128
    and the lattice at batch 8 and 16, int8 greedy at batch 48 (all over the
    int8 slab), and predict.yaml's beam-5 over the bf16 slab and bf16 KV at
-   batch 8; OCR prefill ms, ms/step and img/s of the int4, int8 and
+   batch 8; the decode kernels launched per step of each of these runs,
+   from the launch counters (int4 greedy at batch 8: at most one per
+   attention call, 48); OCR prefill ms, ms/step and img/s of the int4, int8 and
    megastep paths at batch 8 and of the megastep at batch 48, 512 new
    tokens; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
@@ -153,8 +157,10 @@ FLASH_BIAS = ("flash_bias", "flash_bias_dkv", "flash_bias_dq")
 FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel",
                      "flash_relbias_kernel")
 FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
-# the OCR megastep's instantiations (batch tiles of 8, 16, 48 rows)
+# the OCR megastep's instantiations (batch tiles of 8, 16, 48 rows) and
+# decode_int4's (1-8 query rows a CTA)
 MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
+DECODE_INT4_SYMBOLS = ("decode_int4_kernel",)
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -499,6 +505,14 @@ def check_kernels(dev, pack: int) -> dict:
         cargs = (query(8, H), kq, ks, vq, vs, cross_bias(8, kp, valid))
         out[name] = decode_run(name, kernel, plain, cargs, {})
         report(name, f"cross B=8 R={H} Kp={kp}", out[name])
+        if int4:
+            # the beam cross over the same slab: 5 beams folded into 80
+            # query rows, each kv block's bytes read once for all of them
+            report(name, f"beam cross B=8 R={beams * H} Kp={kp} head_map "
+                   "(the greedy cross's slab)",
+                   decode_run(name, kernel, plain,
+                              (query(8, beams * H), *cargs[1:]),
+                              dict(head_map=beam_map)))
         # beam cross: 8 slab rows, 5 beams folded into 80 query rows
         bq, bs = slab(8, pack, pack - 100, int4)
         bv, bvs = slab(8, pack, pack - 100, int4)
@@ -1415,11 +1429,13 @@ def compare_to_plain(model, cfg, host: dict, dev) -> dict:
 
 def time_path(model, mt, cfg, host: dict, dev, route: str, kv: str,
               beams: int, opts: dict) -> dict:
-    """Encode ms, decode ms/step and img/s of one warm generate_batch call
-    (a 16-step run at the same batch warms it up); opts as drive_path's."""
+    """Encode ms, decode ms/step, img/s and decode-kernel launches per step
+    of one warm generate_batch call (a 16-step run at the same batch warms
+    it up); opts as drive_path's."""
     import torch
 
     from markushgrapher_torch.eval_pipeline import Evaluator
+    from markushgrapher_torch.ops import _build
 
     opts = dict(opts)
     model = route_model(model, cfg, host, route, kv).clone(
@@ -1436,6 +1452,7 @@ def time_path(model, mt, cfg, host: dict, dev, route: str, kv: str,
                                           **opts))
     enc_ms = time_encode(model, host, dev)
     torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
     t0 = time.perf_counter()
     ev.generate_batch(host, cross_pack_len=pack)
     torch.cuda.synchronize()
@@ -1443,7 +1460,9 @@ def time_path(model, mt, cfg, host: dict, dev, route: str, kv: str,
     return dict(encode_ms=enc_ms,
                 decode_ms_per_step=(total * 1e3 - enc_ms) / steps,
                 img_per_s=b / total, cross_pack=pack,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                decode_launches_per_step=sum(
+                    _build.LAUNCHES[k] for k in DECODE_KERNELS) / steps)
 
 
 def time_encode(model, host: dict, dev, calls: int = 1) -> float:
@@ -1632,7 +1651,8 @@ def main() -> None:
     print(f"build: {_build.build_info['seconds']:.1f} s "
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
     for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
-                                   FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS):
+                                   FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS +
+                                   DECODE_INT4_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
@@ -1841,7 +1861,14 @@ def main() -> None:
                   f"decode {t['decode_ms_per_step']:.3f} ms/step, "
                   f"{t['img_per_s']:.3f} img/s ({cfg.max_seq_length_decoder} "
                   f"steps, cross pack {t['cross_pack']}, peak "
-                  f"{t['peak_gb']:.1f} GB) on {card}", flush=True)
+                  f"{t['peak_gb']:.1f} GB; decode kernels "
+                  f"{t['decode_launches_per_step']:.1f} a step from the "
+                  f"launch counters) on {card}", flush=True)
+            if label == "greedy int4" and \
+                    t["decode_launches_per_step"] > 2 * layers:
+                raise AssertionError(
+                    f"greedy int4 b{b}: {t['decode_launches_per_step']} "
+                    f"decode launches a step, more than {2 * layers}")
     pages_big = torch.tensor(np.random.RandomState(SEED + 1).randint(
         0, 256, (MEGA_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
     for name, flags, _, opts in OCR_PATHS + (

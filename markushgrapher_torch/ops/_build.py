@@ -57,10 +57,13 @@ _SIGNATURES = {
     "mg_bias_build_i8": [_P] * 9 + [_I] * 6 + [_F, _P, _P],
     # q, k, v, bias, scales, key_mask, B, L, H, D, out, stream
     "mg_flash_i8": [_P] * 6 + [_I] * 4 + [_P, _P],
+    # q, kq, ks, vq, vs, bias, slots, row_map, B, R, G, D, K, scale_rows,
+    # bias_bstride, bias_rstride, block_k, live, n_slots, rows, splits,
+    # chunk, aligned, out_bf16, out, stream
+    "mg_decode_int4": [_P] * 8 + [_I] * 16 + [_P, _P],
     # q, kq, ks, vq, vs, bias, head_map, row_map, B, R, G, D, K,
     # scale_rows, bias_bstride, bias_rstride, block_k, live, out_bf16, out,
     # stream
-    "mg_decode_int4": [_P] * 8 + [_I] * 11 + [_P, _P],
     "mg_decode_i8": [_P] * 8 + [_I] * 11 + [_P, _P],
     # q, kq, ks, vq, vs, bias, row_map, B, R, G, D, L, scale_rows,
     # bias_bstride, bias_rstride, seg, n_live, out_bf16, out, stream

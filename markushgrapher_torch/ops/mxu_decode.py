@@ -49,17 +49,30 @@ The kernels trust the row map's entries to lie in [0, rows).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from markushgrapher_torch.ops import _build
 
-# dynamic shared memory of one decode block: q [D] + 8 warp partials + 256
-# column partials + the live keys' scores + 2 floats per key block, all f32,
-# within the default 48 KB
+# dynamic shared memory of one decode_i8 block: q [D] + 8 warp partials +
+# 256 column partials + the live keys' scores + 2 floats per key block, all
+# f32, within the default 48 KB
 _SMEM_FLOATS = 48 * 1024 // 4
 _THREADS = 256
+# decode_int4's launch (csrc/decode_int4.cu): a cluster of at most
+# I4_CLUSTER CTAs per (sample, slot), a slot being one run of D bytes of the
+# packed rows and up to I4_ROWS query rows that read it; each CTA stages its
+# keys in at most I4_SMEM bytes of shared memory. The plan aims at I4_CTAS
+# CTAs (twice the H100's I4_SMS SMs), all resident at once where they fit
+# (I4_SM_SMEM bytes of shared memory a SM, 1 KB of each CTA's reserved, and
+# as many CTAs as the registers allow: the tensor-core instances, D 32 or
+# 64, keep to 64 a thread, 4 CTAs a SM; the others to 128, 2), splits no
+# range below I4_MIN_KEYS keys and, without a block size, cuts ranges in
+# multiples of I4_GRAIN keys.
+I4_CLUSTER, I4_ROWS, I4_SMEM = 8, 10, 227 * 1024
+I4_SMS, I4_SM_SMEM = 132, 228 * 1024
+I4_CTAS, I4_MIN_KEYS, I4_GRAIN = 2 * I4_SMS, 64, 32
 # the lattice kernel's dynamic shared memory (two segment buffers) may go
 # up to what one block of the card can use
 _LATTICE_SMEM = 227 * 1024
@@ -270,11 +283,210 @@ def _check_operands(name: str, per_byte: int, q, kq, ks, vq, vs, bias,
     return batch, rows, groups, d
 
 
+def _int4_tensor_cores(d: int) -> bool:
+    """decode_int4 runs its products on the tensor cores at head dim 32 or
+    64 (every head's runs are whole 16-byte units there)."""
+    return d in (32, 64)
+
+
+def int4_pitch(d: int) -> int:
+    """Bytes per staged key row: d on the tensor cores (units swizzled),
+    else an odd number of 16-byte units (of words when d is no multiple of
+    16)."""
+    if _int4_tensor_cores(d):
+        return d
+    if d % 16 == 0:
+        return d if (d // 16) % 2 else d + 16
+    return d if (d // 4) % 2 else d + 4
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def int4_scale_rows(per_row: bool, rows: int, groups: int) -> int:
+    """Scale rows a decode_int4 CTA stages: one per query row, or one per
+    head whose nibbles its bytes hold (two when G is even)."""
+    return rows if per_row else (2 if groups % 2 == 0 else 1)
+
+
+def int4_smem(d: int, rows: int, scale_rows: int, keys: int,
+              seg: int) -> int:
+    """Dynamic shared memory of one decode_int4 CTA (csrc/decode_int4.cu's
+    `layout`): K and V tiles of `keys` rows in whole tiles of 16 (the K
+    tile at least the P V partials of the warps or thread groups); q
+    (float32 rows, or two bf16 [8 or 16, d] tensor-core operands with rows
+    of d + 8) in the same bytes as the cluster's partials of this CTA's
+    outputs; the scores, the running maxima and scales of the local blocks
+    of `seg` keys (rows of scores and scales 4 longer than the tiles); the
+    cluster's maxima and l, warp partials; bf16 K and V scales of
+    `scale_rows` rows."""
+    kt = -(-keys // 16) * 16
+    kp = kt + 4
+    nbl = -(-keys // seg)
+    tile = kt * int4_pitch(d)
+    part = (4 * (_THREADS // 32) * rows * d if _int4_tensor_cores(d)
+            else 16 * _THREADS * rows)
+    return (_up16(max(tile, part)) + _up16(tile)
+            + max(4 * (16 if rows > 8 else 8) * (d + 8),
+                  _up16(4 * (rows * d + I4_CLUSTER)))
+            + 4 * rows * kp + 2 * _up16(4 * rows * nbl)
+            + 2 * _up16(4 * I4_CLUSTER * rows)
+            + _up16(4 * (_THREADS // 32) * rows)
+            + 2 * _up16(2 * scale_rows * kp))
+
+
+class Int4Plan(NamedTuple):
+    """One decode_int4 launch: `splits` CTAs in each cluster, CTA i taking
+    keys [i * chunk, min(live, (i + 1) * chunk)); local key blocks of `seg`
+    keys; `rows` query rows a CTA (template); `smem` bytes a CTA."""
+    splits: int
+    chunk: int
+    seg: int
+    rows: int
+    smem: int
+
+    def ranges(self, live: int) -> List[Tuple[int, int]]:
+        return [(i * self.chunk, min(live, (i + 1) * self.chunk))
+                for i in range(self.splits)]
+
+
+def int4_resident(smem: int, d: int) -> int:
+    """decode_int4 CTAs of `smem` bytes at head dim d the card holds at
+    once."""
+    return I4_SMS * min(4 if _int4_tensor_cores(d) else 2,
+                        I4_SM_SMEM // (smem + 1024))
+
+
+@functools.lru_cache(maxsize=1024)
+def int4_plan(batch: int, slots: int, rows: int, d: int, live: int,
+              block_k: Optional[int] = None,
+              scale_rows: int = 1) -> Int4Plan:
+    """The host's choice for one decode_int4 call over `batch` samples and
+    `slots` slots of at most `rows` query rows (`scale_rows` staged scale
+    rows): ranges of whole blocks of block_k when the call has a block size
+    (else multiples of I4_GRAIN keys, one block), no empty CTA, and, among
+    the counts of CTAs a cluster (at most I4_CLUSTER) whose shared memory
+    fits and whose grid has I4_CTAS CTAs (or ranges of I4_MIN_KEYS keys),
+    the one whose grid takes the fewest waves of resident CTAs, then the
+    fewest CTAs. Raises ValueError where even I4_CLUSTER CTAs do not
+    fit. Cached: the decode calls of a step repeat a few shapes."""
+    unit = I4_GRAIN if block_k is None else block_k
+    units = -(-live // unit)
+    plans = []
+    for splits in range(1, I4_CLUSTER + 1):
+        per = -(-units // splits)
+        chunk = per * unit
+        keys = min(chunk, live)
+        seg = keys if block_k is None else block_k
+        smem = int4_smem(d, rows, scale_rows, keys, seg)
+        if smem <= I4_SMEM:
+            plans.append(Int4Plan(-(-units // per), chunk, seg, rows, smem))
+    enough = [p for p in plans if batch * slots * p.splits >= I4_CTAS
+              or p.chunk <= max(unit, I4_MIN_KEYS)] or plans[-1:]
+    if enough:
+        return min(enough, key=lambda p: (
+            -(-batch * slots * p.splits // int4_resident(p.smem, d)),
+            p.splits))
+    raise ValueError(
+        f"decode_int4: {live} live keys need more shared memory than a "
+        f"cluster of {I4_CLUSTER} CTAs has ({I4_SMEM} bytes each; D {d}, "
+        f"{rows} query rows a kv block)")
+
+
+@functools.lru_cache(maxsize=64)
+def int4_slots(rows: int, groups: int,
+               head_map: Optional[tuple]) -> Tuple[Tuple[int, tuple], ...]:
+    """The inverse of the head map over the packed bytes: (byte column
+    block c, the query rows that read it, how many of them read head c) for
+    each run of D bytes some row reads, in order. With G even, bytes
+    [c*D, c*D + D) hold head c in their low nibbles and head c + G/2 in
+    their high ones: the rows of head c, then those of head c + G/2; with
+    G odd, head c's rows. At most I4_ROWS rows a slot: more take further
+    slots."""
+    hm = _row_groups(rows, groups, head_map).tolist()
+    paired = groups % 2 == 0
+    out = []
+    for c in range(groups // 2 if paired else groups):
+        low = [r for r in range(rows) if hm[r] == c]
+        mine = low + ([r for r in range(rows) if hm[r] == c + groups // 2]
+                      if paired else [])
+        out += [(c, tuple(mine[i:i + I4_ROWS]),
+                 max(0, min(len(low) - i, I4_ROWS)))
+                for i in range(0, len(mine), I4_ROWS)]
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _int4_slot_table(rows: int, groups: int, head_map: Optional[tuple],
+                     device: str) -> torch.Tensor:
+    """int4_slots as the kernel reads it, made once per map: int32
+    [slots, 3 + I4_ROWS] of (c, row count, head c's row count, rows padded
+    with the first)."""
+    flat = []
+    for c, mine, low in int4_slots(rows, groups, head_map):
+        flat += [c, len(mine), low, *mine] + [mine[0]] * (I4_ROWS -
+                                                          len(mine))
+    return torch.tensor(flat, dtype=torch.int32,
+                        device=device).view(-1, 3 + I4_ROWS)
+
+
+def int4_call_plan(q, kq, ks, vq, vs, bias, head_map=None, row_map=None,
+                   block_k=None, live_keys=None):
+    """Check one decode_int4 call's operands (the module docstring
+    contract; any device) and plan its launch: (head map tuple or None,
+    block size, live keys, Int4Plan). Raises ValueError on what the kernel
+    does not take, before any launch."""
+    name = "decode_int4"
+    batch, rows, groups, d = _check_operands(name, 2, q, kq, ks, vq, vs,
+                                             bias, head_map, row_map)
+    block, live = _options(name, batch, kq.shape[1], row_map, block_k,
+                           live_keys)
+    hm = None if head_map is None else tuple(int(h) for h in head_map)
+    slots = int4_slots(rows, groups, hm)
+    most = max(len(m) for _, m, _ in slots)
+    plan = int4_plan(batch, len(slots), most, d, live, block_k,
+                     int4_scale_rows(ks.shape[1] == rows, most, groups))
+    return hm, block, live, plan
+
+
+def _launch_int4(q, kq, ks, vq, vs, bias, head_map, row_map, block_k,
+                 live_keys) -> torch.Tensor:
+    """Launch decode_int4 once (csrc/decode_int4.cu) and count it."""
+    name = "decode_int4"
+    hm, block, live, plan = int4_call_plan(q, kq, ks, vq, vs, bias, head_map,
+                                           row_map, block_k, live_keys)
+    batch, rows, d = q.shape
+    groups, kv_len = kq.shape[2] * 2 // d, kq.shape[1]
+    qb = q.to(torch.bfloat16).contiguous()
+    kq, vq = kq.contiguous(), vq.contiguous()
+    ks, vs = (t.to(torch.bfloat16).contiguous() for t in (ks, vs))
+    bias = bias.to(torch.float32).contiguous()
+    slots = _int4_slot_table(rows, groups, hm, str(q.device))
+    rm = None if row_map is None else row_map.to(torch.int32).contiguous()
+    out_bf16 = q.dtype == torch.bfloat16
+    out = torch.empty((batch, rows, d), device=q.device,
+                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
+    _build.require_cuda(name, qb, kq, ks, vq, vs, bias, out, slots,
+                        *(t for t in (rm,) if t is not None))
+    rc = _build.lib().mg_decode_int4(
+        qb.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), bias.data_ptr(), slots.data_ptr(),
+        0 if rm is None else rm.data_ptr(), batch, rows, groups, d, kv_len,
+        ks.shape[1], bias.shape[1] * kv_len if bias.shape[0] > 1 else 0,
+        kv_len if bias.shape[1] > 1 else 0, block, live, slots.shape[0],
+        plan.rows, plan.splits, plan.chunk, int(block_k is not None),
+        int(out_bf16), out.data_ptr(), _build.stream(out))
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return out.to(q.dtype)
+
+
 def _launch(name: str, per_byte: int, scale_dtype: torch.dtype, q, kq, ks,
             vq, vs, bias, head_map, row_map, block_k,
             live_keys) -> torch.Tensor:
-    """Launch decode kernel `name` (K/V bytes hold `per_byte` values each)
-    and count it; raises on what the kernel does not take."""
+    """Launch decode kernel `name` (decode_i8; K/V bytes hold `per_byte`
+    values each) and count it; raises on what the kernel does not take."""
     batch, rows, groups, d = _check_operands(name, per_byte, q, kq, ks, vq,
                                              vs, bias, head_map, row_map)
     kv_len = kq.shape[1]
@@ -332,12 +544,13 @@ def cross_decode_mxu_int4(q: torch.Tensor, kq: torch.Tensor,
                           live_keys: Optional[int] = None) -> torch.Tensor:
     """Packed int4 K/V [rows, K, G*D/2] (any G with G*D a multiple of 8; a
     head's nibbles may straddle the column split when G is odd); module
-    docstring contract. The kernel reads the scales in bf16."""
+    docstring contract. The kernel reads the scales in bf16, and takes as
+    many live keys as `int4_plan` fits in a cluster's shared memory."""
     if q.device.type == "cpu":
         return plain_int4(q, kq, ks, vq, vs, bias, head_map, row_map,
                           block_k, live_keys)
-    return _launch("decode_int4", 2, torch.bfloat16, q, kq, ks, vq, vs,
-                   bias, head_map, row_map, block_k, live_keys)
+    return _launch_int4(q, kq, ks, vq, vs, bias, head_map, row_map, block_k,
+                        live_keys)
 
 
 def lattice_smem_bytes(seg: int, d: int) -> int:

@@ -198,6 +198,124 @@ def test_decode_int4_odd_groups(dev, groups, d):
                                rtol=2e-2)
 
 
+def _int4_call(dev, rng, B, R, G, d, K, *, scale_rows=None, bias_shape=None,
+               rows_kv=None, q_dtype=torch.bfloat16):
+    """decode_int4 operands: q [B, R, d], packed K/V [rows_kv or B, K, G*d/2]
+    with values in [-7, 7], bf16 scales [rows, scale_rows or G, K], a bias of
+    bias_shape (default [B, 1, K]) at 0.5 scale."""
+    rows_kv = B if rows_kv is None else rows_kv
+    q = torch.tensor(rng.randn(B, R, d), device=dev).to(q_dtype)
+    kq, vq = (mxu_decode.pack_int4(torch.tensor(
+        rng.randint(-7, 8, (rows_kv, K, G * d)), dtype=torch.int8,
+        device=dev)) for _ in range(2))
+    ks, vs = (torch.tensor(rng.rand(rows_kv, scale_rows or G, K) * 0.2,
+                           device=dev).to(torch.bfloat16) for _ in range(2))
+    bias = torch.tensor(rng.randn(*(bias_shape or (B, 1, K))) * 0.5,
+                        dtype=torch.float32, device=dev)
+    return q, kq, ks, vq, vs, bias
+
+
+def _int4_case(dev, case):
+    """(operands, options) of one test_decode_int4_cases case."""
+    rng = np.random.RandomState(len(case) * 7 + sum(map(ord, case)))
+    if case == "head_map_any":          # two rows on block 0, block 1 unread
+        return _int4_call(dev, rng, 3, 4, 4, 64, 700), dict(
+            head_map=(0, 0, 2, 3))
+    if case == "beam_per_row_scales":   # 3 beams over 4 heads, [B, R, K]
+        return _int4_call(dev, rng, 2, 12, 4, 64, 900, scale_rows=12), dict(
+            head_map=tuple(range(4)) * 3)
+    if case == "bias_1RK":
+        return _int4_call(dev, rng, 3, 8, 8, 64, 777,
+                          bias_shape=(1, 8, 777)), {}
+    if case == "bias_B1K":
+        args = _int4_call(dev, rng, 3, 8, 8, 64, 777)
+        args[-1][:, :, -90:] = -1e9
+        return args, {}
+    if case == "masked_rows":           # -1e9 (uniform) and float32's lowest
+        args = _int4_call(dev, rng, 2, 8, 4, 64, 1500, bias_shape=(2, 8, 1500))
+        args[-1][0, 1] = -1e9
+        args[-1][1, 6] = torch.finfo(torch.float32).min
+        return args, {}
+    if case == "live_below_block":      # one block, fewer keys than block_k
+        args = _int4_call(dev, rng, 4, 8, 8, 64, 512)
+        rm = torch.tensor(rng.randint(0, 4, (4, 4)), dtype=torch.int32,
+                          device=dev)
+        return args, dict(row_map=rm, block_k=128, live_keys=50)
+    if case == "live_ragged":           # 1001 keys in ranges of 32s
+        return _int4_call(dev, rng, 2, 4, 4, 64, 1200), dict(live_keys=1001)
+    if case == "live_ragged_blocks":    # 11 blocks of 64 and 12 keys
+        return _int4_call(dev, rng, 2, 4, 4, 64, 1024), dict(
+            block_k=64, live_keys=716)
+    if case == "b1_g1":
+        return _int4_call(dev, rng, 1, 4, 1, 64, 3000), {}
+    if case == "row_map_one_row":       # every block from physical row 2
+        rm = torch.full((4, 8), 2, dtype=torch.int32, device=dev)
+        return _int4_call(dev, rng, 4, 8, 8, 64, 512, rows_kv=4), dict(
+            row_map=rm, block_k=64)
+    if case == "out_f32":
+        return _int4_call(dev, rng, 3, 16, 16, 64, 1792,
+                          q_dtype=torch.float32), {}
+    if case == "out_bf16":
+        return _int4_call(dev, rng, 3, 16, 16, 64, 1792), {}
+    if case == "rows_in_three_slots":   # 24 rows on one byte block
+        return _int4_call(dev, rng, 2, 24, 2, 32, 600), {}
+    if case == "head_dim_256":
+        return _int4_call(dev, rng, 2, 4, 2, 256, 1000, scale_rows=4), {}
+    raise KeyError(case)
+
+
+INT4_CASES = ("head_map_any", "beam_per_row_scales", "bias_1RK", "bias_B1K",
+              "masked_rows", "live_below_block", "live_ragged",
+              "live_ragged_blocks", "b1_g1", "row_map_one_row", "out_f32",
+              "out_bf16", "rows_in_three_slots", "head_dim_256")
+
+
+@pytest.mark.parametrize("case", INT4_CASES)
+def test_decode_int4_cases(dev, case):
+    """Each option of decode_int4 and each edge of its key split against
+    plain_int4, in one launch: any head map, per-query-row scales under the
+    beam fold, both bias broadcasts, rows masked everywhere, a live count
+    below one block or no multiple of the split, B = 1 with G = 1, a row map
+    onto one physical row, float32 and bf16 output, more rows on a byte
+    block than one CTA serves (slots of 10, 10 and 4 rows, the second
+    reading both nibbles), head dim 256."""
+    args, kw = _int4_case(dev, case)
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu_int4(*args, **kw)
+    assert _build.LAUNCHES["decode_int4"] == 1
+    ref = mxu_decode.plain_int4(*args, **kw)
+    assert got.dtype == args[0].dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def test_decode_int4_longest_live_and_one_more(dev):
+    """The longest valid prefix the wrapper's plan fits in a cluster runs;
+    one key more is refused before any launch."""
+    rng = np.random.RandomState(37)
+    K = 20480
+    args = _int4_call(dev, rng, 1, 2, 2, 64, K)
+    lo, hi = 1, K
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            mxu_decode.int4_call_plan(*args, live_keys=mid)
+            lo = mid
+        except ValueError:
+            hi = mid
+    assert hi < K  # the search found the limit
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu_int4(*args, live_keys=lo)
+    assert _build.LAUNCHES["decode_int4"] == 1
+    ref = mxu_decode.plain_int4(*args, live_keys=lo)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        mxu_decode.cross_decode_mxu_int4(*args, live_keys=lo + 1)
+    assert _build.LAUNCHES["decode_int4"] == 0
+
+
 def _mega_inputs(dev, n_layers, b, dm, heads, groups, d, f, ring, pos, seed):
     """Random int8 weights (per-channel scales ~ 1/sqrt(fan-in) / 127), a
     ring whose columns < pos hold int8 codes and scales, bf16 x."""
