@@ -14,8 +14,9 @@ prints no result):
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
    spills and static shared memory of the wgmma kernels (the three encoder
    forwards and the two float-bias backward kernels), of the OCR
-   megastep (one instantiation per batch tiling) and of decode_int4 (one
-   instantiation per count of query rows a CTA serves);
+   megastep (one instantiation per batch tiling) and of the decode cluster
+   core under both element policies, int4 and int8 (one instantiation per
+   count of query rows a CTA serves);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
@@ -34,7 +35,9 @@ prints no result):
    p = L0 + 400, and at batch 48 (MEGA_BATCH) at p = L0 + 400;
    decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv heads) over that
    ring; decode_int4 also with the 5 beams folded over the greedy cross's
-   1792 keys, beside the greedy cross over the same slab. The float-bias flash forward at its serving shapes
+   1792 keys, beside the greedy cross over the same slab; both decode
+   kernels also at several waves of CTAs: the greedy cross at B=48 and the
+   beam cross at B=16, Kp=1792. The float-bias flash forward at its serving shapes
    (B=2, B=8) and forward + both backward kernels at the training shape (B=8),
    L=1536, H=16, D=64, bf16 bias with 25 % of the keys masked, against
    SDPA with the bias as attn_mask as the library yardstick (SDPA's one
@@ -80,7 +83,7 @@ prints no result):
    in-kernel bias, packed) at batch 8 and 48; encode ms, decode ms/step and
    img/s over 512 steps of int4 greedy with and without `block_skip` at
    batch 8 and 48, beam-5 (int4) over one ring segment, segments of 128
-   and the lattice at batch 8 and 16, int8 greedy at batch 48 (all over the
+   and the lattice at batch 8, int8 greedy at batch 48 (all over the
    int8 slab), and predict.yaml's beam-5 over the bf16 slab and bf16 KV at
    batch 8; the decode kernels launched per step of each of these runs,
    from the launch counters (int4 greedy at batch 8: at most one per
@@ -141,7 +144,9 @@ KERNELS = {
                       "markushgrapher_tpu/models/t5.py:380"),
     "flash_relbias": ("markushgrapher_torch/csrc/flash_relbias.cu",
                       "markushgrapher_tpu/ops/flash_relbias.py:111"),
-    "lattice_self_int4": ("markushgrapher_torch/csrc/lattice_i4.cu",
+    # the lattice runs decode_int4.cu's entry (the cluster core,
+    # csrc/decode_cluster.cuh) with a row map over its live segments
+    "lattice_self_int4": ("markushgrapher_torch/csrc/decode_int4.cu",
                           "markushgrapher_tpu/ops/mxu_decode.py:666"),
     "normalize_u8": ("markushgrapher_torch/csrc/normalize_u8.cu",
                      "markushgrapher_tpu/ops/preprocess.py:33"),
@@ -158,9 +163,10 @@ FLASH_FWD_SYMBOLS = ("flash_i8_kernel", "flash_bias_fwd_kernel",
                      "flash_relbias_kernel")
 FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
 # the OCR megastep's instantiations (batch tiles of 8, 16, 48 rows) and
-# decode_int4's (1-8 query rows a CTA)
+# the decode cluster core's (int4 and int8 policies, 1-10 query rows a CTA,
+# tensor cores or CUDA cores)
 MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
-DECODE_INT4_SYMBOLS = ("decode_int4_kernel",)
+DECODE_SYMBOLS = ("decode_cluster_kernel",)
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
@@ -542,6 +548,18 @@ def check_kernels(dev, pack: int) -> dict:
                    f"{form} (blocks of {SEG}, "
                    f"{kw.get('live_keys', ring)} keys read)",
                    decode_run(name, kernel, plain, sargs, kw))
+        # several waves of CTAs: the greedy cross at B=48 and the beam cross
+        # at B=16 over 1792 keys, 100 of them padded
+        for nb, nq, kw in ((48, H, {}), (16, beams * H,
+                                         dict(head_map=beam_map))):
+            wk, wks = slab(nb, 1792, 1692, int4)
+            wv, wvs = slab(nb, 1792, 1692, int4)
+            report(name, f"{'beam ' if kw else ''}cross B={nb} R={nq} "
+                   f"Kp=1792{' head_map' if kw else ''}",
+                   decode_run(name, kernel, plain,
+                              (query(nb, nq), wk, wks, wv, wvs,
+                               cross_bias(nb, 1792, 1692)), kw))
+            del wk, wks, wv, wvs
 
     # the lattice over the int4 rings of the same shape, 1 and 4 live
     # segments of 128 (steps 100 and 500), each read through the row map
@@ -1652,7 +1670,7 @@ def main() -> None:
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
     for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
                                    FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS +
-                                   DECODE_INT4_SYMBOLS):
+                                   DECODE_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
@@ -1840,15 +1858,16 @@ def main() -> None:
             print(f"timing encode {route}{f' to {packed}' if packed else ''}"
                   f" b{b}: {ms:.1f} ms on {card}", flush=True)
     # the copy-on-write beams and block_skip beside the paths they change,
-    # in turns at each batch
+    # in turns at each batch (the beams at batch 8 only: on an H100 behind a
+    # slow host their three batch-16 runs took ~2 min of a 1105 s run)
     for label, route, kv, beams, sizes, opts in (
             ("greedy int4", "int8 slab", "int4", 1, (8, 48), {}),
             ("greedy int4 block_skip", "int8 slab", "int4", 1, (8, 48),
              dict(block_skip=True)),
-            ("beam-5 int4 one segment", "int8 slab", "int4", 5, (8, 16), {}),
-            ("beam-5 int4 seg 128", "int8 slab", "int4", 5, (8, 16),
+            ("beam-5 int4 one segment", "int8 slab", "int4", 5, (8,), {}),
+            ("beam-5 int4 seg 128", "int8 slab", "int4", 5, (8,),
              dict(self_seg=128)),
-            ("beam-5 int4 lattice", "int8 slab", "int4", 5, (8, 16),
+            ("beam-5 int4 lattice", "int8 slab", "int4", 5, (8,),
              dict(lattice=True)),
             ("greedy int8", "int8 slab", "int8", 1, (48,), {}),
             ("predict.yaml beam-5 bf16", "bf16 slab", "bf16", 5, (8,), {})):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
-(the two decode kernels and the lattice kernel share `decode_common.cuh`;
-the three encoder flash forwards, over the int8 slab, the float slab and
+(the two decode kernels are element policies of the cluster core
+`decode_cluster.cuh`, whose int4 entry also serves the lattice; the three
+encoder flash forwards, over the int8 slab, the float slab and
 the in-kernel relative bias, are bias policies of `flash_fwd_sm90.cuh`,
 which with the float-bias backward and the OCR megastep shares the Hopper
 pieces of `sm90.cuh`). At first use
@@ -35,8 +36,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
            "decode_i8.cu", "ocr_megastep.cu", "flash_bias.cu",
-           "flash_bias_bwd.cu", "flash_relbias.cu", "lattice_i4.cu",
-           "normalize_u8.cu")
+           "flash_bias_bwd.cu", "flash_relbias.cu", "normalize_u8.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf. The
 # megastep's grid.sync() needs no -rdc (CUDA 11 and later).
@@ -59,15 +59,11 @@ _SIGNATURES = {
     "mg_flash_i8": [_P] * 6 + [_I] * 4 + [_P, _P],
     # q, kq, ks, vq, vs, bias, slots, row_map, B, R, G, D, K, scale_rows,
     # bias_bstride, bias_rstride, block_k, live, n_slots, rows, splits,
-    # chunk, aligned, out_bf16, out, stream
+    # chunk, aligned, out_bf16, out, stream; mg_decode_i8 the same
     "mg_decode_int4": [_P] * 8 + [_I] * 16 + [_P, _P],
-    # q, kq, ks, vq, vs, bias, head_map, row_map, B, R, G, D, K,
-    # scale_rows, bias_bstride, bias_rstride, block_k, live, out_bf16, out,
-    # stream
-    "mg_decode_i8": [_P] * 8 + [_I] * 11 + [_P, _P],
-    # q, kq, ks, vq, vs, bias, row_map, B, R, G, D, L, scale_rows,
-    # bias_bstride, bias_rstride, seg, n_live, out_bf16, out, stream
-    "mg_lattice_i4": [_P] * 7 + [_I] * 11 + [_P, _P],
+    "mg_decode_i8": [_P] * 8 + [_I] * 16 + [_P, _P],
+    # rows, D, splits, smem
+    "mg_decode_i8_clusters": [_I] * 4,
     # in, n, 1/255, mean, 1/std, out_bf16, out, stream
     "mg_normalize_u8": [_P, ctypes.c_longlong, _F, _F, _F, _I, _P, _P],
     # x, out, scratch, rope, kq, ks, vq, vs, wqkv, sqkv, wo, so, wgu, sgu,

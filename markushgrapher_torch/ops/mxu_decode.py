@@ -1,7 +1,7 @@
 """Q=1 decode attention over quantised K/V: the CUDA kernels
-`csrc/decode_i8.cu`, `csrc/decode_int4.cu` and `csrc/lattice_i4.cu`, their
-wrappers, their plain versions, and the nibble packing of the int4 slabs and
-rings.
+`csrc/decode_int4.cu` and `csrc/decode_i8.cu` (two element policies of the
+cluster core `csrc/decode_cluster.cuh`), their wrappers, their launch plan,
+their plain versions, and the nibble packing of the int4 slabs and rings.
 
 Replaces `markushgrapher_tpu/ops/mxu_decode.py`:
   - `cross_decode_mxu` (int8 K/V, f32 scales): every decode-step attention
@@ -10,7 +10,8 @@ Replaces `markushgrapher_tpu/ops/mxu_decode.py`:
     mode: every decode-step attention under the int4 KV scheme;
   - `lattice_self_int4`: beam self-attention over int4 rings read segment by
     segment through a row map, the dead segments never read
-    (`BEAM_LATTICE`);
+    (`BEAM_LATTICE`); on the card decode_int4's kernel with the row map,
+    blocks of one segment and the live segments' keys only;
   - `valid_prefix_blocks`: the options of valid-prefix ring reads
     (`block_skip`).
 Both decode functions take the TPU kernels' `head_map` and `row_map`
@@ -55,14 +56,10 @@ import torch
 
 from markushgrapher_torch.ops import _build
 
-# dynamic shared memory of one decode_i8 block: q [D] + 8 warp partials +
-# 256 column partials + the live keys' scores + 2 floats per key block, all
-# f32, within the default 48 KB
-_SMEM_FLOATS = 48 * 1024 // 4
 _THREADS = 256
-# decode_int4's launch (csrc/decode_int4.cu): a cluster of at most
+# the cluster core's launch (csrc/decode_cluster.cuh): a cluster of at most
 # I4_CLUSTER CTAs per (sample, slot), a slot being one run of D bytes of the
-# packed rows and up to I4_ROWS query rows that read it; each CTA stages its
+# K/V rows and up to I4_ROWS query rows that read it; each CTA stages its
 # keys in at most I4_SMEM bytes of shared memory. The plan aims at I4_CTAS
 # CTAs (twice the H100's I4_SMS SMs), all resident at once where they fit
 # (I4_SM_SMEM bytes of shared memory a SM, 1 KB of each CTA's reserved, and
@@ -73,9 +70,35 @@ _THREADS = 256
 I4_CLUSTER, I4_ROWS, I4_SMEM = 8, 10, 227 * 1024
 I4_SMS, I4_SM_SMEM = 132, 228 * 1024
 I4_CTAS, I4_MIN_KEYS, I4_GRAIN = 2 * I4_SMS, 64, 32
-# the lattice kernel's dynamic shared memory (two segment buffers) may go
-# up to what one block of the card can use
-_LATTICE_SMEM = 227 * 1024
+
+
+class Elem(NamedTuple):
+    """An element policy of the cluster core: the kernel (its C entry
+    `mg_<name>` and launch counter), values a byte (2: packed int4, whose
+    runs of D bytes hold two heads where G is even; 1: int8, one head a
+    run), the scales' dtype, and how `int4_plan` picks the CTAs a cluster
+    (`measured`): False, decode_int4's rule (a grid of at least I4_CTAS
+    CTAs, resident CTAs as `int4_resident` models them, the fewest CTAs
+    among the fewest waves); True, the card's own count of resident
+    clusters (its C entry `mg_<name>_clusters`; `int4_resident` off the
+    card), a grid of at least I4_SMS CTAs, and the fewest keys a CTA among
+    the fewest waves."""
+    name: str
+    per_byte: int
+    scale_dtype: torch.dtype
+    measured: bool = False
+
+    @property
+    def scale_bytes(self) -> int:
+        return self.scale_dtype.itemsize
+
+    def two_heads(self, groups: int) -> bool:
+        """Whether a run of D bytes holds two heads (c and c + G/2)."""
+        return self.per_byte == 2 and groups % 2 == 0
+
+
+INT4 = Elem("decode_int4", 2, torch.bfloat16)
+INT8 = Elem("decode_i8", 1, torch.float32, measured=True)
 NEG_INF = -1e30
 
 
@@ -242,12 +265,6 @@ def plain_lattice_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                       live_keys=int(n_live) * seg)
 
 
-@functools.lru_cache(maxsize=32)
-def _head_map_on(head_map: tuple, device: str) -> torch.Tensor:
-    """The head map as a small int32 device array, made once per map."""
-    return torch.tensor(head_map, dtype=torch.int32, device=device)
-
-
 def _check_operands(name: str, per_byte: int, q, kq, ks, vq, vs, bias,
                     head_map, row_map) -> Tuple[int, int, int, int]:
     """Check the operands against the module docstring contract (K/V bytes
@@ -284,8 +301,8 @@ def _check_operands(name: str, per_byte: int, q, kq, ks, vq, vs, bias,
 
 
 def _int4_tensor_cores(d: int) -> bool:
-    """decode_int4 runs its products on the tensor cores at head dim 32 or
-    64 (every head's runs are whole 16-byte units there)."""
+    """The cluster core runs its products on the tensor cores at head dim
+    32 or 64 (every head's runs are whole 16-byte units there)."""
     return d in (32, 64)
 
 
@@ -304,23 +321,25 @@ def _up16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def int4_scale_rows(per_row: bool, rows: int, groups: int) -> int:
-    """Scale rows a decode_int4 CTA stages: one per query row, or one per
-    head whose nibbles its bytes hold (two when G is even)."""
-    return rows if per_row else (2 if groups % 2 == 0 else 1)
+def int4_scale_rows(per_row: bool, rows: int, groups: int,
+                    elem: Elem = INT4) -> int:
+    """Scale rows a cluster-core CTA stages: one per query row, or one per
+    head its bytes hold (two for packed int4 with G even)."""
+    return rows if per_row else (2 if elem.two_heads(groups) else 1)
 
 
 def int4_smem(d: int, rows: int, scale_rows: int, keys: int,
-              seg: int) -> int:
-    """Dynamic shared memory of one decode_int4 CTA (csrc/decode_int4.cu's
-    `layout`): K and V tiles of `keys` rows in whole tiles of 16 (the K
-    tile at least the P V partials of the warps or thread groups); q
-    (float32 rows, or two bf16 [8 or 16, d] tensor-core operands with rows
-    of d + 8) in the same bytes as the cluster's partials of this CTA's
-    outputs; the scores, the running maxima and scales of the local blocks
-    of `seg` keys (rows of scores and scales 4 longer than the tiles); the
-    cluster's maxima and l, warp partials; bf16 K and V scales of
-    `scale_rows` rows."""
+              seg: int, scale_bytes: int = 2) -> int:
+    """Dynamic shared memory of one cluster-core CTA
+    (csrc/decode_cluster.cuh's `layout`): K and V tiles of `keys` rows in
+    whole tiles of 16 (the K tile at least the P V partials of the warps or
+    thread groups); q (float32 rows, or two bf16 [8 or 16, d] tensor-core
+    operands with rows of d + 8) in the same bytes as the cluster's
+    partials of this CTA's outputs; the scores, the running maxima and
+    scales of the local blocks of `seg` keys (rows of scores and scales 4
+    longer than the tiles); the cluster's maxima and l, warp partials; K
+    and V scales of `scale_rows` rows, `scale_bytes` a key (bf16 or
+    f32)."""
     kt = -(-keys // 16) * 16
     kp = kt + 4
     nbl = -(-keys // seg)
@@ -333,11 +352,11 @@ def int4_smem(d: int, rows: int, scale_rows: int, keys: int,
             + 4 * rows * kp + 2 * _up16(4 * rows * nbl)
             + 2 * _up16(4 * I4_CLUSTER * rows)
             + _up16(4 * (_THREADS // 32) * rows)
-            + 2 * _up16(2 * scale_rows * kp))
+            + 2 * _up16(scale_bytes * scale_rows * kp))
 
 
 class Int4Plan(NamedTuple):
-    """One decode_int4 launch: `splits` CTAs in each cluster, CTA i taking
+    """One cluster-core launch: `splits` CTAs in each cluster, CTA i taking
     keys [i * chunk, min(live, (i + 1) * chunk)); local key blocks of `seg`
     keys; `rows` query rows a CTA (template); `smem` bytes a CTA."""
     splits: int
@@ -352,25 +371,43 @@ class Int4Plan(NamedTuple):
 
 
 def int4_resident(smem: int, d: int) -> int:
-    """decode_int4 CTAs of `smem` bytes at head dim d the card holds at
+    """Cluster-core CTAs of `smem` bytes at head dim d the card holds at
     once."""
     return I4_SMS * min(4 if _int4_tensor_cores(d) else 2,
                         I4_SM_SMEM // (smem + 1024))
 
 
+def _resident_ctas(elem: Elem, on_card: bool, rows: int, d: int,
+                   splits: int, smem: int) -> int:
+    """Cluster-core CTAs the card holds at once for one plan: the card's
+    count of whole clusters where the policy measures it on the card, else
+    `int4_resident`'s model."""
+    if elem.measured and on_card:
+        clusters = getattr(_build.lib(), f"mg_{elem.name}_clusters")(
+            rows, d, splits, smem)
+        if clusters < 1:
+            raise RuntimeError(f"{elem.name}: no cluster of {splits} CTAs "
+                               f"of {smem} bytes fits the card")
+        return clusters * splits
+    return int4_resident(smem, d)
+
+
 @functools.lru_cache(maxsize=1024)
 def int4_plan(batch: int, slots: int, rows: int, d: int, live: int,
-              block_k: Optional[int] = None,
-              scale_rows: int = 1) -> Int4Plan:
-    """The host's choice for one decode_int4 call over `batch` samples and
-    `slots` slots of at most `rows` query rows (`scale_rows` staged scale
-    rows): ranges of whole blocks of block_k when the call has a block size
-    (else multiples of I4_GRAIN keys, one block), no empty CTA, and, among
-    the counts of CTAs a cluster (at most I4_CLUSTER) whose shared memory
-    fits and whose grid has I4_CTAS CTAs (or ranges of I4_MIN_KEYS keys),
-    the one whose grid takes the fewest waves of resident CTAs, then the
-    fewest CTAs. Raises ValueError where even I4_CLUSTER CTAs do not
-    fit. Cached: the decode calls of a step repeat a few shapes."""
+              block_k: Optional[int] = None, scale_rows: int = 1,
+              elem: Elem = INT4, on_card: bool = False) -> Int4Plan:
+    """The host's choice for one cluster-core call over `batch` samples
+    and `slots` slots of at most `rows` query rows (`scale_rows` staged
+    scale rows of the policy's scale dtype): ranges of whole blocks of
+    block_k when the call has a block size (else multiples of I4_GRAIN
+    keys, one block), no empty CTA, and, among the counts of CTAs a cluster
+    (at most I4_CLUSTER) whose shared memory fits and whose grid has
+    enough CTAs (or ranges of I4_MIN_KEYS keys), the one the policy's rule
+    (`Elem`) picks: the fewest waves of resident CTAs, then the fewest CTAs
+    (decode_int4) or the fewest keys a CTA (decode_i8, whose resident
+    clusters `on_card` counts on the current device). Raises ValueError
+    where even I4_CLUSTER CTAs do not fit. Cached: the decode calls of a
+    step repeat a few shapes."""
     unit = I4_GRAIN if block_k is None else block_k
     units = -(-live // unit)
     plans = []
@@ -379,33 +416,36 @@ def int4_plan(batch: int, slots: int, rows: int, d: int, live: int,
         chunk = per * unit
         keys = min(chunk, live)
         seg = keys if block_k is None else block_k
-        smem = int4_smem(d, rows, scale_rows, keys, seg)
+        smem = int4_smem(d, rows, scale_rows, keys, seg, elem.scale_bytes)
         if smem <= I4_SMEM:
             plans.append(Int4Plan(-(-units // per), chunk, seg, rows, smem))
-    enough = [p for p in plans if batch * slots * p.splits >= I4_CTAS
+    grid = I4_SMS if elem.measured else I4_CTAS
+    enough = [p for p in plans if batch * slots * p.splits >= grid
               or p.chunk <= max(unit, I4_MIN_KEYS)] or plans[-1:]
     if enough:
+        def waves(p: Int4Plan) -> int:
+            return -(-batch * slots * p.splits // _resident_ctas(
+                elem, on_card, rows, d, p.splits, p.smem))
         return min(enough, key=lambda p: (
-            -(-batch * slots * p.splits // int4_resident(p.smem, d)),
-            p.splits))
+            waves(p), p.chunk if elem.measured else p.splits))
     raise ValueError(
-        f"decode_int4: {live} live keys need more shared memory than a "
+        f"{elem.name}: {live} live keys need more shared memory than a "
         f"cluster of {I4_CLUSTER} CTAs has ({I4_SMEM} bytes each; D {d}, "
         f"{rows} query rows a kv block)")
 
 
 @functools.lru_cache(maxsize=64)
-def int4_slots(rows: int, groups: int,
-               head_map: Optional[tuple]) -> Tuple[Tuple[int, tuple], ...]:
-    """The inverse of the head map over the packed bytes: (byte column
-    block c, the query rows that read it, how many of them read head c) for
-    each run of D bytes some row reads, in order. With G even, bytes
-    [c*D, c*D + D) hold head c in their low nibbles and head c + G/2 in
-    their high ones: the rows of head c, then those of head c + G/2; with
-    G odd, head c's rows. At most I4_ROWS rows a slot: more take further
-    slots."""
+def int4_slots(rows: int, groups: int, head_map: Optional[tuple],
+               elem: Elem = INT4) -> Tuple[Tuple[int, tuple], ...]:
+    """The inverse of the head map over the K/V bytes: (run of D bytes c,
+    the query rows that read it, how many of them read head c) for each run
+    some row reads, in order. Packed int4 with G even: bytes [c*D, c*D + D)
+    hold head c in their low nibbles and head c + G/2 in their high ones,
+    so the rows of head c, then those of head c + G/2; otherwise (int4 with
+    G odd, int8) run c is head c's, and its rows read it. At most I4_ROWS
+    rows a slot: more take further slots."""
     hm = _row_groups(rows, groups, head_map).tolist()
-    paired = groups % 2 == 0
+    paired = elem.two_heads(groups)
     out = []
     for c in range(groups // 2 if paired else groups):
         low = [r for r in range(rows) if hm[r] == c]
@@ -419,12 +459,12 @@ def int4_slots(rows: int, groups: int,
 
 @functools.lru_cache(maxsize=64)
 def _int4_slot_table(rows: int, groups: int, head_map: Optional[tuple],
-                     device: str) -> torch.Tensor:
+                     device: str, elem: Elem = INT4) -> torch.Tensor:
     """int4_slots as the kernel reads it, made once per map: int32
     [slots, 3 + I4_ROWS] of (c, row count, head c's row count, rows padded
     with the first)."""
     flat = []
-    for c, mine, low in int4_slots(rows, groups, head_map):
+    for c, mine, low in int4_slots(rows, groups, head_map, elem):
         flat += [c, len(mine), low, *mine] + [mine[0]] * (I4_ROWS -
                                                           len(mine))
     return torch.tensor(flat, dtype=torch.int32,
@@ -432,88 +472,71 @@ def _int4_slot_table(rows: int, groups: int, head_map: Optional[tuple],
 
 
 def int4_call_plan(q, kq, ks, vq, vs, bias, head_map=None, row_map=None,
-                   block_k=None, live_keys=None):
-    """Check one decode_int4 call's operands (the module docstring
-    contract; any device) and plan its launch: (head map tuple or None,
-    block size, live keys, Int4Plan). Raises ValueError on what the kernel
-    does not take, before any launch."""
-    name = "decode_int4"
-    batch, rows, groups, d = _check_operands(name, 2, q, kq, ks, vq, vs,
-                                             bias, head_map, row_map)
-    block, live = _options(name, batch, kq.shape[1], row_map, block_k,
+                   block_k=None, live_keys=None, elem: Elem = INT4):
+    """Check one cluster-core call's operands (the module docstring
+    contract; any device) under the element policy and plan its launch:
+    (head map tuple or None, block size, live keys, Int4Plan). Raises
+    ValueError on what the kernel does not take, before any launch."""
+    batch, rows, groups, d = _check_operands(elem.name, elem.per_byte, q,
+                                             kq, ks, vq, vs, bias, head_map,
+                                             row_map)
+    block, live = _options(elem.name, batch, kq.shape[1], row_map, block_k,
                            live_keys)
     hm = None if head_map is None else tuple(int(h) for h in head_map)
-    slots = int4_slots(rows, groups, hm)
+    slots = int4_slots(rows, groups, hm, elem)
     most = max(len(m) for _, m, _ in slots)
     plan = int4_plan(batch, len(slots), most, d, live, block_k,
-                     int4_scale_rows(ks.shape[1] == rows, most, groups))
+                     int4_scale_rows(ks.shape[1] == rows, most, groups, elem),
+                     elem, q.device.type == "cuda")
     return hm, block, live, plan
 
 
-def _launch_int4(q, kq, ks, vq, vs, bias, head_map, row_map, block_k,
-                 live_keys) -> torch.Tensor:
-    """Launch decode_int4 once (csrc/decode_int4.cu) and count it."""
-    name = "decode_int4"
-    hm, block, live, plan = int4_call_plan(q, kq, ks, vq, vs, bias, head_map,
-                                           row_map, block_k, live_keys)
+def lattice_call_plan(q, kq, ks, vq, vs, bias, row_map, n_live: int,
+                      seg: int):
+    """Check one lattice_self_int4 call (n_live in [1, L / seg], the row
+    map's shape) and plan it: decode_int4's call plan with the row map,
+    blocks of one segment and the first n_live segments' keys."""
+    name = "lattice_self_int4"
+    kv_len = kq.shape[1]
+    _options(name, q.shape[0], kv_len, row_map, seg, None)
+    if not 0 < int(n_live) <= kv_len // seg:
+        raise ValueError(f"{name}: n_live {n_live} not in "
+                         f"[1, {kv_len // seg}]")
+    return int4_call_plan(q, kq, ks, vq, vs, bias, row_map=row_map,
+                          block_k=seg, live_keys=int(n_live) * seg)
+
+
+def _launch_cluster(q, kq, ks, vq, vs, bias, head_map, row_map, block_k,
+                    live_keys, elem: Elem = INT4,
+                    counter: Optional[str] = None,
+                    planned=None) -> torch.Tensor:
+    """Launch the cluster core once under the element policy (its C entry
+    `mg_<elem.name>`) and count it under `counter` (default the entry's
+    name); `planned`: the call's `int4_call_plan`, where the caller made
+    it."""
+    hm, block, live, plan = planned or int4_call_plan(
+        q, kq, ks, vq, vs, bias, head_map, row_map, block_k, live_keys, elem)
     batch, rows, d = q.shape
-    groups, kv_len = kq.shape[2] * 2 // d, kq.shape[1]
+    groups, kv_len = kq.shape[2] * elem.per_byte // d, kq.shape[1]
     qb = q.to(torch.bfloat16).contiguous()
     kq, vq = kq.contiguous(), vq.contiguous()
-    ks, vs = (t.to(torch.bfloat16).contiguous() for t in (ks, vs))
+    ks, vs = (t.to(elem.scale_dtype).contiguous() for t in (ks, vs))
     bias = bias.to(torch.float32).contiguous()
-    slots = _int4_slot_table(rows, groups, hm, str(q.device))
+    slots = _int4_slot_table(rows, groups, hm, str(q.device), elem)
     rm = None if row_map is None else row_map.to(torch.int32).contiguous()
     out_bf16 = q.dtype == torch.bfloat16
     out = torch.empty((batch, rows, d), device=q.device,
                       dtype=torch.bfloat16 if out_bf16 else torch.float32)
+    name = counter or elem.name
     _build.require_cuda(name, qb, kq, ks, vq, vs, bias, out, slots,
                         *(t for t in (rm,) if t is not None))
-    rc = _build.lib().mg_decode_int4(
+    rc = getattr(_build.lib(), f"mg_{elem.name}")(
         qb.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), bias.data_ptr(), slots.data_ptr(),
         0 if rm is None else rm.data_ptr(), batch, rows, groups, d, kv_len,
         ks.shape[1], bias.shape[1] * kv_len if bias.shape[0] > 1 else 0,
         kv_len if bias.shape[1] > 1 else 0, block, live, slots.shape[0],
         plan.rows, plan.splits, plan.chunk, int(block_k is not None),
-        int(out_bf16), out.data_ptr(), _build.stream(out))
-    _build.check(rc, name)
-    _build.LAUNCHES[name] += 1
-    return out.to(q.dtype)
-
-
-def _launch(name: str, per_byte: int, scale_dtype: torch.dtype, q, kq, ks,
-            vq, vs, bias, head_map, row_map, block_k,
-            live_keys) -> torch.Tensor:
-    """Launch decode kernel `name` (decode_i8; K/V bytes hold `per_byte`
-    values each) and count it; raises on what the kernel does not take."""
-    batch, rows, groups, d = _check_operands(name, per_byte, q, kq, ks, vq,
-                                             vs, bias, head_map, row_map)
-    kv_len = kq.shape[1]
-    block, live = _options(name, batch, kv_len, row_map, block_k, live_keys)
-    n_blocks = -(-live // block)
-    if d + _THREADS // 32 + _THREADS + live + 2 * n_blocks > _SMEM_FLOATS:
-        raise ValueError(f"{name}: {live} live keys in {n_blocks} blocks "
-                         "exceed one block's shared memory")
-    qb = q.to(torch.bfloat16).contiguous()
-    kq, vq = kq.contiguous(), vq.contiguous()
-    ks, vs = (t.to(scale_dtype).contiguous() for t in (ks, vs))
-    bias = bias.to(torch.float32).contiguous()
-    hm = (None if head_map is None
-          else _head_map_on(tuple(int(h) for h in head_map), str(q.device)))
-    rm = None if row_map is None else row_map.to(torch.int32).contiguous()
-    out_bf16 = q.dtype == torch.bfloat16
-    out = torch.empty((batch, rows, d), device=q.device,
-                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
-    _build.require_cuda(name, qb, kq, ks, vq, vs, bias, out,
-                        *(t for t in (hm, rm) if t is not None))
-    rc = getattr(_build.lib(), f"mg_{name}")(
-        qb.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), bias.data_ptr(), 0 if hm is None else hm.data_ptr(),
-        0 if rm is None else rm.data_ptr(),
-        batch, rows, groups, d, kv_len, ks.shape[1],
-        bias.shape[1] * kv_len if bias.shape[0] > 1 else 0,
-        kv_len if bias.shape[1] > 1 else 0, block, live,
         int(out_bf16), out.data_ptr(), _build.stream(out))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
@@ -527,12 +550,13 @@ def cross_decode_mxu(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                      block_k: Optional[int] = None,
                      live_keys: Optional[int] = None) -> torch.Tensor:
     """int8 K/V [rows, K, G*D] with f32 scales; module docstring
-    contract."""
+    contract. The kernel takes as many live keys as `int4_plan` fits in a
+    cluster's shared memory."""
     if q.device.type == "cpu":
         return plain_int8(q, kq, ks, vq, vs, bias, head_map, row_map,
                           block_k, live_keys)
-    return _launch("decode_i8", 1, torch.float32, q, kq, ks, vq, vs, bias,
-                   head_map, row_map, block_k, live_keys)
+    return _launch_cluster(q, kq, ks, vq, vs, bias, head_map, row_map,
+                           block_k, live_keys, INT8)
 
 
 def cross_decode_mxu_int4(q: torch.Tensor, kq: torch.Tensor,
@@ -549,16 +573,8 @@ def cross_decode_mxu_int4(q: torch.Tensor, kq: torch.Tensor,
     if q.device.type == "cpu":
         return plain_int4(q, kq, ks, vq, vs, bias, head_map, row_map,
                           block_k, live_keys)
-    return _launch_int4(q, kq, ks, vq, vs, bias, head_map, row_map, block_k,
-                        live_keys)
-
-
-def lattice_smem_bytes(seg: int, d: int) -> int:
-    """Dynamic shared memory of one lattice block (csrc/lattice_i4.cu): two
-    segment buffers of K and V nibble bytes (rows padded by 16 bytes) and
-    bf16 scales, then q, the reductions and the segment's scores in f32."""
-    return 2 * (2 * seg * (d + 16) + 2 * seg * 2) + 4 * (
-        d + _THREADS // 32 + _THREADS + seg)
+    return _launch_cluster(q, kq, ks, vq, vs, bias, head_map, row_map,
+                           block_k, live_keys)
 
 
 def lattice_self_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -570,44 +586,14 @@ def lattice_self_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     row_map[b, s], segments s >= n_live are never read, and the softmax runs
     online across segments (the module docstring's rounding). The same
     function as `cross_decode_mxu_int4(..., row_map=row_map, block_k=seg)`,
-    whose dead segments the causal mask zeroes; the kernel takes the query
-    rows over the kv blocks in grouped order, G even."""
+    whose dead segments the causal mask zeroes; on the card that kernel
+    reads the first n_live * seg keys only, counted as this function's
+    launch."""
     if q.device.type == "cpu":
         return plain_lattice_int4(q, kq, ks, vq, vs, bias, row_map, n_live,
                                   seg)
-    name = "lattice_self_int4"
-    batch, rows, groups, d = _check_operands(name, 2, q, kq, ks, vq, vs,
-                                             bias, None, row_map)
-    kv_len = kq.shape[1]
-    _options(name, batch, kv_len, row_map, seg, None)
-    n_live = int(n_live)
-    if not 0 < n_live <= kv_len // seg:
-        raise ValueError(f"{name}: n_live {n_live} not in "
-                         f"[1, {kv_len // seg}]")
-    if d % 16 or (groups * d // 2) % d or seg % 2 or kv_len % 2:
-        raise ValueError(f"{name}: the kernel copies 16-byte runs of one "
-                         "head's nibbles (D a multiple of 16, G even) and "
-                         "4-byte runs of scales (seg and L even)")
-    smem = lattice_smem_bytes(seg, d)
-    if smem > _LATTICE_SMEM:
-        raise ValueError(f"{name}: segments of {seg} keys need {smem} bytes "
-                         f"of shared memory (at most {_LATTICE_SMEM})")
-    qb = q.to(torch.bfloat16).contiguous()
-    kq, vq = kq.contiguous(), vq.contiguous()
-    ks, vs = (t.to(torch.bfloat16).contiguous() for t in (ks, vs))
-    bias = bias.to(torch.float32).contiguous()
-    rm = row_map.to(torch.int32).contiguous()
-    out_bf16 = q.dtype == torch.bfloat16
-    out = torch.empty((batch, rows, d), device=q.device,
-                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
-    _build.require_cuda(name, qb, kq, ks, vq, vs, bias, rm, out)
-    rc = _build.lib().mg_lattice_i4(
-        qb.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), bias.data_ptr(), rm.data_ptr(), batch, rows, groups,
-        d, kv_len, ks.shape[1],
-        bias.shape[1] * kv_len if bias.shape[0] > 1 else 0,
-        kv_len if bias.shape[1] > 1 else 0, seg, n_live, int(out_bf16),
-        out.data_ptr(), _build.stream(out))
-    _build.check(rc, name)
-    _build.LAUNCHES[name] += 1
-    return out.to(q.dtype)
+    planned = lattice_call_plan(q, kq, ks, vq, vs, bias, row_map, n_live,
+                                seg)
+    return _launch_cluster(q, kq, ks, vq, vs, bias, None, row_map, seg,
+                           int(n_live) * seg, counter="lattice_self_int4",
+                           planned=planned)

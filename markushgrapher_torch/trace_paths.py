@@ -73,8 +73,7 @@ OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
 TRAIN_BATCH, TRAIN_WARM = 8, 2
 # device-time kinds, by the first substring of the kernel name that matches
 KINDS = (("ocr_megastep", ("ocr_megastep",)),
-         ("decode attention", ("decode_i8_kernel", "decode_int4_kernel",
-                               "lattice_i4_kernel")),
+         ("decode attention", ("decode_cluster_kernel",)),
          ("flash_i8", ("flash_i8",)), ("bias_build_i8", ("bias_build",)),
          ("flash_bias", ("flash_bias_fwd",)),
          ("flash_relbias", ("flash_relbias",)),

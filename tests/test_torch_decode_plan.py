@@ -1,9 +1,12 @@
-"""decode_int4's launch plan on the CPU: the split of the live keys over a
+"""The cluster core's launch plan on the CPU, under both element policies
+(decode_int4: packed int4 K/V with bf16 scales; decode_i8: int8 K/V with
+f32 scales) and for the lattice: the split of the live keys over a
 thread-block cluster (`mxu_decode.int4_plan`), the slots of query rows that
-share a kv column block (`mxu_decode.int4_slots`), the refusal limit the
-wrapper raises at, and the split softmax the kernel runs, emulated in torch
-over the plan's ranges against `plain_int4`. The kernel itself runs on the
-card (tests/test_torch_kernels_cuda.py)."""
+share a run of K/V bytes (`mxu_decode.int4_slots`), the refusal limit the
+wrapper raises at, the split softmax the kernel runs, emulated in torch
+over the plan's ranges against `plain_int4` / `plain_int8`, and the byte
+route by which decode_i8 makes int8 values bf16 operands. The kernels
+themselves run on the card (tests/test_torch_kernels_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -51,16 +54,19 @@ SHAPES = (
 )
 
 
-def _operands(B, R, G, d, K, srows, opts, device="meta"):
+def _operands(B, R, G, d, K, srows, opts, device="meta", elem=m.INT4):
     """Operands of one call as `int4_call_plan` checks them (shapes only on
-    the meta device); options with row_map=True get a zero row map."""
+    the meta device) under the element policy; options with row_map=True
+    get a zero row map."""
     kw = dict(opts)
     if kw.pop("row_map", False):
         kw["row_map"] = torch.zeros((B, K // kw["block_k"]),
                                     dtype=torch.int32, device=device)
     q = torch.zeros((B, R, d), dtype=torch.bfloat16, device=device)
-    kv = torch.zeros((B, K, G * d // 2), dtype=torch.int8, device=device)
-    sc = torch.zeros((B, srows or G, K), dtype=torch.bfloat16, device=device)
+    kv = torch.zeros((B, K, G * d // elem.per_byte), dtype=torch.int8,
+                     device=device)
+    sc = torch.zeros((B, srows or G, K), dtype=elem.scale_dtype,
+                     device=device)
     bias = torch.zeros((B, 1, K), dtype=torch.float32, device=device)
     return (q, kv, sc, kv, sc, bias), kw
 
@@ -153,9 +159,9 @@ def test_refusal_is_the_wrappers(B, R, G, d, srows, opts):
     args, kw = _operands(B, R, G, d, K, srows, opts, device="cpu")
     _build.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
-        m._launch_int4(*args, None, None, kw.get("block_k"), top)
+        m._launch_cluster(*args, None, None, kw.get("block_k"), top)
     with pytest.raises(ValueError, match="shared memory"):
-        m._launch_int4(*args, None, None, kw.get("block_k"), top + 1)
+        m._launch_cluster(*args, None, None, kw.get("block_k"), top + 1)
     assert _build.LAUNCHES["decode_int4"] == 0
 
 
@@ -190,8 +196,16 @@ def test_slots_invert_the_head_map(rows, groups, head_map, want):
         assert row == [c, len(rs), low, *rs] + [rs[0]] * (m.I4_ROWS - len(rs))
 
 
+def _values(t, elem, row_map, block, live, B, groups, d, sel):
+    """The live keys' values [B, live, R, d] as each query row reads them:
+    unpacked nibbles (int4) or the int8 values."""
+    t = m._keys(t, row_map, block, live, 1)
+    t = m.unpack_int4(t) if elem.per_byte == 2 else t.float()
+    return t.reshape(B, live, groups, d)[:, :, sel]
+
+
 def _split_softmax(q, kq, ks, vq, vs, bias, head_map=None, row_map=None,
-                   block_k=None, live_keys=None):
+                   block_k=None, live_keys=None, elem=m.INT4):
     """The kernel's arithmetic in torch, CTA by CTA over the plan's ranges:
     each CTA's scores and block maxima, the cluster's maxima exchanged
     (M_last; the running max before a CTA's first block from the CTAs
@@ -200,12 +214,12 @@ def _split_softmax(q, kq, ks, vq, vs, bias, head_map=None, row_map=None,
     Returns (output, the running max of each key's block [B, R, live])."""
     hm, block, live, plan = m.int4_call_plan(q, kq, ks, vq, vs, bias,
                                              head_map, row_map, block_k,
-                                             live_keys)
+                                             live_keys, elem)
     B, R, d = q.shape
-    groups = kq.shape[2] * 2 // d
+    groups = kq.shape[2] * elem.per_byte // d
     sel = m._row_groups(R, groups, hm)
-    k, v = (m.unpack_int4(m._keys(t, row_map, block, live, 1)).reshape(
-        B, live, groups, d)[:, :, sel] for t in (kq, vq))
+    k, v = (_values(t, elem, row_map, block, live, B, groups, d, sel)
+            for t in (kq, vq))
     kss, vss = (m._keys(t, row_map, block, live, 2).float() for t in (ks, vs))
     if kss.shape[1] != R:
         kss, vss = kss[:, sel], vss[:, sel]
@@ -283,14 +297,330 @@ def test_split_softmax_keeps_the_plain_rounding_points(opts):
                                rtol=2e-2)
 
 
-def _scores(q, kq, ks, bias, hm, row_map, block, live):
+def _scores(q, kq, ks, bias, hm, row_map, block, live, elem=m.INT4):
     """s = (bf16(q) . k) * ks + bias over the live keys, as plain reads
     them."""
     B, R, d = q.shape
-    groups = kq.shape[2] * 2 // d
+    groups = kq.shape[2] * elem.per_byte // d
     sel = m._row_groups(R, groups, hm)
-    k = m.unpack_int4(m._keys(kq, row_map, block, live, 1)).reshape(
-        B, live, groups, d)[:, :, sel]
-    kss = m._keys(ks, row_map, block, live, 2).float()[:, sel]
+    k = _values(kq, elem, row_map, block, live, B, groups, d, sel)
+    kss = m._keys(ks, row_map, block, live, 2).float()
+    if kss.shape[1] != R:
+        kss = kss[:, sel]
     qb = q.to(torch.bfloat16).float()
     return torch.einsum("brd,bkrd->brk", qb, k) * kss + bias[..., :live]
+
+
+# -- decode_i8: the Int8 policy of the same core --------------------------------
+
+# (name, B, R, G, d, K, scale rows or None (G), head_map, options): row 5's
+# forms (the greedy cross at the batch's pack and at 1792 keys, the beam
+# cross over pack 1280 and 1792, the beam-5 self ring whole, through a row
+# map, up to a valid prefix, both), the greedy cross at b48 and the beam
+# cross at b16, the OCR ring, beam-5 int8 over segments of 128, and the
+# card cases' shapes
+I8_SHAPES = (
+    ("mg_cross_b8_1280", 8, H, H, D, 1280, None, None, {}),
+    ("mg_cross_b8_1792", 8, H, H, D, 1792, None, None, {}),
+    ("mg_cross_b48", 48, H, H, D, 1792, None, None, {}),
+    ("beam_cross_1280", 8, 5 * H, H, D, 1280, None, BEAM, {}),
+    ("beam_cross_1792", 8, 5 * H, H, D, 1792, None, BEAM, {}),
+    ("beam_cross_b16", 16, 5 * H, H, D, 1792, None, BEAM, {}),
+    ("self_ring", 40, H, H, D, 512, None, None, {}),
+    ("self_row_map", 40, H, H, D, 512, None, None,
+     dict(row_map=True, block_k=128)),
+    ("self_prefix", 40, H, H, D, 512, None, None,
+     dict(block_k=128, live_keys=384)),
+    ("self_row_map_prefix", 40, H, H, D, 512, None, None,
+     dict(row_map=True, block_k=128, live_keys=384)),
+    ("self_row_map_b16", 80, H, H, D, 512, None, None,
+     dict(row_map=True, block_k=128)),
+    ("ocr_ring", 8, 15, 5, 64, 640, None, None, {}),
+    ("beam_per_row_scales", 2, 12, 4, 64, 900, 12, tuple(range(4)) * 3, {}),
+    ("rows_in_three_slots", 2, 24, 1, 32, 600, None, None, {}),
+    ("small_heads", 3, 8, 2, 8, 320, None, None, {}),
+    ("head_dim_256", 2, 4, 2, 256, 1000, 4, None, {}),
+    ("live_ragged_blocks", 2, 4, 4, 64, 1024, None, None,
+     dict(block_k=64, live_keys=716)),
+)
+
+
+@pytest.mark.parametrize("shape", I8_SHAPES, ids=[s[0] for s in I8_SHAPES])
+def test_int8_plan_covers_live_keys_in_one_cluster(shape):
+    """decode_i8's plan: the ranges cover [0, live) once, none empty, on
+    block_k boundaries when the call has a block size; at most 8 CTAs a
+    cluster; one head a slot; each CTA's shared memory as the kernel lays
+    it out with f32 scales, within the card's 227 KB."""
+    _, B, R, G, d, K, srows, hm, opts = shape
+    args, kw = _operands(B, R, G, d, K, srows, opts, elem=m.INT8)
+    hmap, block, live, plan = m.int4_call_plan(*args, head_map=hm, **kw,
+                                               elem=m.INT8)
+    ranges = plan.ranges(live)
+    assert 1 <= plan.splits <= m.I4_CLUSTER
+    assert ranges[0][0] == 0 and ranges[-1][1] == live
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0]
+               for i in range(len(ranges) - 1))
+    if "block_k" in kw:
+        assert block == kw["block_k"] == plan.seg
+        assert all(a % block == 0 for a, _ in ranges)
+    else:
+        assert block == live and plan.chunk % m.I4_GRAIN == 0
+    slots = m.int4_slots(R, G, hmap, m.INT8)
+    assert all(low == len(rows) for _, rows, low in slots)
+    assert plan.rows == max(len(rows) for _, rows, _ in slots) <= m.I4_ROWS
+    sr = m.int4_scale_rows((srows or G) == R, plan.rows, G, m.INT8)
+    assert sr == (plan.rows if (srows or G) == R else 1)
+    keys = min(plan.chunk, live)
+    assert plan.smem == m.int4_smem(d, plan.rows, sr, keys, plan.seg,
+                                    4) <= m.I4_SMEM
+    assert m.int4_smem(d, plan.rows, sr, keys, plan.seg, 4) > m.int4_smem(
+        d, plan.rows, sr, keys, plan.seg, 2)
+
+
+@pytest.mark.parametrize("rows,groups,head_map,want", [
+    (16, 16, None, [(g, (g,), 1) for g in range(16)]),
+    (80, 16, BEAM, [(g, tuple(range(g, 80, 16)), 5) for g in range(16)]),
+    (15, 5, None, [(g, (3 * g, 3 * g + 1, 3 * g + 2), 3) for g in range(5)]),
+    (24, 2, None, [(0, tuple(range(10)), 10), (0, tuple(range(10, 12)), 2),
+                   (1, tuple(range(12, 22)), 10), (1, (22, 23), 2)]),
+    (16, 1, None, [(0, tuple(range(10)), 10), (0, tuple(range(10, 16)), 6)]),
+    (4, 4, (0, 0, 2, 3), [(0, (0, 1), 2), (2, (2,), 1), (3, (3,), 1)]),
+])
+def test_int8_slots_invert_the_head_map(rows, groups, head_map, want):
+    """Under int8 a slot is one head's run of D bytes and the rows that
+    read that head (greedy: one; the beam fold: the 5 beams; OCR: 3 query
+    heads), at most 10 a slot, every row in exactly one slot, unread heads
+    in none; the kernel's table has every row as a row of head c."""
+    slots = m.int4_slots(rows, groups, head_map, m.INT8)
+    assert [tuple(s) for s in slots] == want
+    assert sorted(r for _, rs, _ in slots for r in rs) == list(range(rows))
+    hm = m._row_groups(rows, groups, head_map).tolist()
+    assert all(hm[r] == c for c, rs, _ in slots for r in rs)
+    table = m._int4_slot_table(rows, groups, head_map, "cpu", m.INT8)
+    for (c, rs, low), row in zip(want, table.tolist()):
+        assert row == [c, len(rs), low, *rs] + [rs[0]] * (m.I4_ROWS - len(rs))
+
+
+@pytest.mark.parametrize("B,R,G,d,srows,hm,opts", [
+    (1, 16, 16, 64, None, None, {}),
+    (8, 80, 16, 64, None, BEAM, {}),
+    (8, 15, 5, 64, None, None, {}),
+    (2, 4, 2, 256, 4, None, {}),
+    (4, 16, 16, 64, None, None, dict(block_k=128)),
+])
+def test_int8_refusal_is_the_wrappers(B, R, G, d, srows, hm, opts):
+    """decode_i8's refusal limit is its plan's: at the longest live count
+    the plan fits, the wrapper stops only at the CPU tensors; one key more
+    and it refuses for shared memory, before any launch. At head dim 64
+    (every path's) it takes over 11000 keys, more than the paths' longest
+    (the 1792-key cross)."""
+    from markushgrapher_torch.ops import _build
+
+    lo, hi = 1, 40960
+    args, kw = _operands(B, R, G, d, hi, srows, opts, elem=m.INT8)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            m.int4_call_plan(*args, hm, live_keys=mid, **kw, elem=m.INT8)
+            lo = mid
+        except ValueError:
+            hi = mid
+    unit = opts.get("block_k", m.I4_GRAIN)
+    assert lo % unit == 0 and hi < 40960 and (d != 64 or lo > 11000)
+    K = -(-(lo + 1) // unit) * unit
+    args, kw = _operands(B, R, G, d, K, srows, opts, device="cpu",
+                         elem=m.INT8)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        m._launch_cluster(*args, hm, None, kw.get("block_k"), lo, m.INT8)
+    with pytest.raises(ValueError, match="decode_i8: .* shared memory"):
+        m._launch_cluster(*args, hm, None, kw.get("block_k"), lo + 1,
+                          m.INT8)
+    assert _build.LAUNCHES["decode_i8"] == 0
+
+
+@pytest.mark.parametrize("opts", [
+    {}, dict(live_keys=700), dict(block_k=32), dict(block_k=32, live_keys=500),
+    dict(block_k=32, row_map=True), dict(block_k=128, live_keys=70)],
+    ids=["one_block", "one_block_live", "blocks", "blocks_live", "row_map",
+         "live_below_block"])
+@pytest.mark.parametrize("per_row", [False, True], ids=["per_head", "per_row"])
+def test_split_softmax_int8_keeps_the_plain_rounding_points(opts, per_row):
+    """decode_i8 over the plan's split: the running max of every key's
+    block is the sequential one bit for bit (so p and bf16(p * vs) are
+    plain_int8's values), and the output is plain_int8's within the kernel
+    tolerance; 12 query rows over 4 kv heads under the beam fold, the full
+    int8 range, f32 scales per head or per query row, masked keys at the
+    end."""
+    rng = np.random.RandomState(7 + per_row)
+    B, R, G, d, K = 1, 12, 4, 32, 1024
+    kw = dict(opts)
+    if kw.pop("row_map", False):
+        kw["row_map"] = torch.tensor(rng.randint(0, 2, (B, K // 32)),
+                                     dtype=torch.int32)
+        rows_kv = 2
+    else:
+        rows_kv = B
+    q = torch.tensor(rng.randn(B, R, d), dtype=torch.float32)
+    kq, vq = (torch.tensor(rng.randint(-128, 128, (rows_kv, K, G * d)),
+                           dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.tensor(rng.rand(rows_kv, R if per_row else G, K) * 0.02,
+                           dtype=torch.float32) for _ in range(2))
+    bias = torch.tensor(rng.randn(B, 1, K) * 2, dtype=torch.float32)
+    bias[..., -100:] = -1e9
+    hm = tuple(range(G)) * 3
+    got, mj = _split_softmax(q, kq, ks, vq, vs, bias, hm, **kw, elem=m.INT8)
+    _, block, live, plan = m.int4_call_plan(q, kq, ks, vq, vs, bias, hm,
+                                            **kw, elem=m.INT8)
+    assert plan.splits > 1 or live <= block
+    run = torch.full((B, R), m.NEG_INF)
+    seq = torch.empty_like(mj)
+    s = _scores(q, kq, ks, bias, hm, kw.get("row_map"), block, live, m.INT8)
+    for j in range(0, live, block):
+        run = torch.maximum(run, s[..., j:j + block].amax(-1))
+        seq[..., j:j + block] = run[..., None]
+    assert torch.equal(mj, seq)
+    ref = m.plain_int8(q, kq, ks, vq, vs, bias, hm, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: result byte i is byte
+    (sel >> 4i) & 7 of the eight bytes of (x, y)."""
+    pool = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(pool[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
+               for i in range(4)).astype(np.uint32)
+
+
+def _bf16_rn(f):
+    """float32 -> bf16 bits, round to nearest even (cvt.rn.bf16x2.f32)."""
+    u = f.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+@pytest.mark.parametrize("b0,b1", [(0, 1), (2, 3), (0, 2), (1, 3)])
+def test_int8_bf16_route_is_exact(b0, b1):
+    """decode_i8's bytes to bf16 operands (decode_cluster.cuh, Int8): u =
+    w ^ 0x80808080, byte B of u under the exponent byte of 2^23 (byte
+    permute 0x7540 + B with 0x4B000000) is the float 2^23 + x + 128, minus
+    2^23 + 128 in float32 is x, and the bf16 pair of two such bytes holds
+    both exactly: for all 256 values of every byte of a word, in each byte
+    pair the scores and P V take."""
+    vals = np.arange(-128, 128, dtype=np.int64)
+    other = np.roll(vals, 77)
+    # the word: byte b0 takes every value, byte b1 another, the rest fixed
+    x = np.zeros((256, 4), dtype=np.int64)
+    x[:, :] = np.array([5, -128, 127, -1])
+    x[:, b0], x[:, b1] = vals, other
+    w = sum(((x[:, i] & 0xFF).astype(np.uint32) << np.uint32(8 * i))
+            for i in range(4)).astype(np.uint32)
+    u = w ^ np.uint32(0x80808080)
+    c = np.full_like(u, 0x4B000000)
+    pair = []
+    for b in (b0, b1):
+        f = _byte_perm(u, c, 0x7540 + b).view(np.float32) - np.float32(
+            8388736.0)
+        assert f.dtype == np.float32
+        assert np.array_equal(f, x[:, b].astype(np.float32))
+        pair.append(_bf16_rn(f))
+    packed = pair[0] | (pair[1] << np.uint32(16))
+    lo = (packed << np.uint32(16)).view(np.float32)
+    hi = (packed & np.uint32(0xFFFF0000)).view(np.float32)
+    assert np.array_equal(lo, x[:, b0].astype(np.float32))
+    assert np.array_equal(hi, x[:, b1].astype(np.float32))
+    # torch's bf16 rounding agrees
+    assert torch.equal(torch.tensor(x[:, b0], dtype=torch.float32).to(
+        torch.bfloat16).float(), torch.tensor(lo))
+
+
+# -- the lattice on decode_int4's core ------------------------------------------
+
+
+@pytest.mark.parametrize("rows,ring,seg,n_live", [
+    (40, 512, 128, 1), (40, 512, 128, 4), (40, 512, 8, 37), (40, 1024, 512, 2),
+    (80, 512, 128, 3)])
+def test_lattice_call_plan_is_the_row_mapped_int4_plan(rows, ring, seg, n_live):
+    """lattice_self_int4 on the card is decode_int4's call with the row
+    map, blocks of one segment and the first n_live segments' keys: the
+    same head map, block, live count and launch plan; ranges of whole
+    segments, so no CTA reads a dead one."""
+    args, kw = _operands(rows, H, H, D, ring, None,
+                         dict(row_map=True, block_k=seg))
+    rm = kw["row_map"]
+    got = m.lattice_call_plan(*args, rm, n_live, seg)
+    want = m.int4_call_plan(*args, row_map=rm, block_k=seg,
+                            live_keys=n_live * seg)
+    assert got == want
+    _, block, live, plan = got
+    assert (block, live) == (seg, n_live * seg)
+    assert all(a % seg == 0 and (b % seg == 0 or b == live)
+               for a, b in plan.ranges(live))
+
+
+@pytest.mark.parametrize("n_live,seg,maps,match", [
+    (0, 128, 4, "n_live"), (5, 128, 4, "n_live"), (-1, 128, 4, "n_live"),
+    (1, 128, 2, "row_map"), (1, 100, 4, "block_k")])
+def test_lattice_refuses_before_launch(n_live, seg, maps, match):
+    """n_live outside [1, L / seg], a row map of the wrong shape and a
+    segment that does not tile the ring are refused by the plan, before
+    the wrapper reaches a device."""
+    from markushgrapher_torch.ops import _build
+
+    args, _ = _operands(4, H, H, D, 512, None, {}, device="cpu")
+    rm = torch.zeros((4, maps), dtype=torch.int32)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        m.lattice_call_plan(*args, rm, n_live, seg)
+    q, kq, ks, vq, vs, bias = args
+    with pytest.raises(ValueError, match=match):
+        m.lattice_self_int4(q.to("meta"), kq.to("meta"), ks.to("meta"),
+                            vq.to("meta"), vs.to("meta"), bias.to("meta"),
+                            rm.to("meta"), n_live, seg)
+    assert _build.LAUNCHES["lattice_self_int4"] == 0
+
+
+# resident CTAs of clusters of decode_i8's tensor-core instance that an
+# NVIDIA H100 80GB HBM3 reported (cudaOccupancyMaxActiveClusters, through
+# decode_bench.py), by (CTAs its shared memory and registers allow an SM,
+# CTAs a cluster): clusters of 3 to 8 hold fewer than the SMs' count
+H100_RESIDENT = {(1, 1): 132, (1, 2): 132, (2, 2): 264, (2, 3): 237,
+                 (3, 1): 396, (3, 3): 372, (3, 4): 368, (3, 5): 345,
+                 (3, 6): 372, (4, 1): 528, (4, 2): 528, (4, 3): 489,
+                 (4, 4): 496, (4, 5): 470, (4, 6): 474, (4, 7): 483,
+                 (4, 8): 496}
+
+
+@pytest.mark.parametrize("name,want", [("mg_cross_b8_1280", 2),
+                                       ("beam_cross_b16", 4),
+                                       ("self_ring", 1), ("mg_cross_b48", 5)])
+def test_int8_plan_counts_the_cards_clusters(monkeypatch, name, want):
+    """On the card decode_i8's plan counts its waves by the clusters the
+    card holds (here the counts an H100 reported), and among the fewest
+    waves takes the fewest keys a CTA: the greedy cross at the batch's pack
+    takes clusters of 2 (256 CTAs, one wave; 3 would be 384 of 372
+    resident), the beam cross at b16 clusters of 4 (3 waves), the self ring
+    one CTA a (row, head), the cross at b48 clusters of 5 (9 waves, 384
+    keys a CTA). decode_int4's rule is untouched."""
+    def resident(elem, on_card, rows, d, splits, smem):
+        if not (elem.measured and on_card):
+            return m.int4_resident(smem, d)
+        per_sm = min(4, m.I4_SM_SMEM // (smem + 1024))
+        return H100_RESIDENT[per_sm, splits]
+
+    shape = {s[0]: s for s in I8_SHAPES}[name]
+    _, B, R, G, d, K, srows, hm, opts = shape
+    slots = m.int4_slots(R, G, hm, m.INT8)
+    rows = max(len(r) for _, r, _ in slots)
+    args = (B, len(slots), rows, d, K, opts.get("block_k"),
+            m.int4_scale_rows((srows or G) == R, rows, G, m.INT8), m.INT8)
+    m.int4_plan.cache_clear()
+    monkeypatch.setattr(m, "_resident_ctas", resident)
+    try:
+        assert m.int4_plan(*args, True).splits == want
+        assert m.int4_plan(8, 8, 2, 64, 1792, None, 2, m.INT4,
+                           True)[:2] == (5, 384)
+    finally:
+        m.int4_plan.cache_clear()

@@ -152,13 +152,15 @@ def test_decode_int4_head_map(dev):
 
 
 def test_decode_i8_refuses_too_many_keys(dev):
+    """Past the cluster's shared memory (13056 keys at one query row a
+    head of 64) the wrapper refuses before any launch."""
     q = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=dev)
-    kv = torch.zeros((1, 12288, 1024), dtype=torch.int8, device=dev)
-    sc = torch.zeros((1, 16, 12288), device=dev)
+    kv = torch.zeros((1, 16384, 1024), dtype=torch.int8, device=dev)
+    sc = torch.zeros((1, 16, 16384), device=dev)
     _build.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
         mxu_decode.cross_decode_mxu(q, kv, sc, kv, sc,
-                                    torch.zeros((1, 1, 12288), device=dev))
+                                    torch.zeros((1, 1, 16384), device=dev))
     assert _build.LAUNCHES["decode_i8"] == 0
 
 
@@ -199,68 +201,91 @@ def test_decode_int4_odd_groups(dev, groups, d):
 
 
 def _int4_call(dev, rng, B, R, G, d, K, *, scale_rows=None, bias_shape=None,
-               rows_kv=None, q_dtype=torch.bfloat16):
+               rows_kv=None, q_dtype=torch.bfloat16, int8=False):
     """decode_int4 operands: q [B, R, d], packed K/V [rows_kv or B, K, G*d/2]
     with values in [-7, 7], bf16 scales [rows, scale_rows or G, K], a bias of
-    bias_shape (default [B, 1, K]) at 0.5 scale."""
+    bias_shape (default [B, 1, K]) at 0.5 scale. int8: decode_i8 operands
+    instead, K/V [rows, K, G*d] over the full int8 range and f32 scales."""
     rows_kv = B if rows_kv is None else rows_kv
     q = torch.tensor(rng.randn(B, R, d), device=dev).to(q_dtype)
-    kq, vq = (mxu_decode.pack_int4(torch.tensor(
-        rng.randint(-7, 8, (rows_kv, K, G * d)), dtype=torch.int8,
-        device=dev)) for _ in range(2))
-    ks, vs = (torch.tensor(rng.rand(rows_kv, scale_rows or G, K) * 0.2,
-                           device=dev).to(torch.bfloat16) for _ in range(2))
+    if int8:
+        kq, vq = (torch.tensor(rng.randint(-128, 128, (rows_kv, K, G * d)),
+                               dtype=torch.int8, device=dev)
+                  for _ in range(2))
+        ks, vs = (torch.tensor(rng.rand(rows_kv, scale_rows or G, K) * 0.02,
+                               dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    else:
+        kq, vq = (mxu_decode.pack_int4(torch.tensor(
+            rng.randint(-7, 8, (rows_kv, K, G * d)), dtype=torch.int8,
+            device=dev)) for _ in range(2))
+        ks, vs = (torch.tensor(rng.rand(rows_kv, scale_rows or G, K) * 0.2,
+                               device=dev).to(torch.bfloat16)
+                  for _ in range(2))
     bias = torch.tensor(rng.randn(*(bias_shape or (B, 1, K))) * 0.5,
                         dtype=torch.float32, device=dev)
     return q, kq, ks, vq, vs, bias
 
 
-def _int4_case(dev, case):
-    """(operands, options) of one test_decode_int4_cases case."""
+def _int4_case(dev, case, int8=False):
+    """(operands, options) of one test_decode_int4_cases case (int8: of
+    test_decode_i8_cases)."""
     rng = np.random.RandomState(len(case) * 7 + sum(map(ord, case)))
+
+    def call(*args, **kw):
+        return _int4_call(dev, rng, *args, int8=int8, **kw)
+
     if case == "head_map_any":          # two rows on block 0, block 1 unread
-        return _int4_call(dev, rng, 3, 4, 4, 64, 700), dict(
-            head_map=(0, 0, 2, 3))
+        return call(3, 4, 4, 64, 700), dict(head_map=(0, 0, 2, 3))
     if case == "beam_per_row_scales":   # 3 beams over 4 heads, [B, R, K]
-        return _int4_call(dev, rng, 2, 12, 4, 64, 900, scale_rows=12), dict(
+        return call(2, 12, 4, 64, 900, scale_rows=12), dict(
             head_map=tuple(range(4)) * 3)
     if case == "bias_1RK":
-        return _int4_call(dev, rng, 3, 8, 8, 64, 777,
-                          bias_shape=(1, 8, 777)), {}
+        return call(3, 8, 8, 64, 777, bias_shape=(1, 8, 777)), {}
     if case == "bias_B1K":
-        args = _int4_call(dev, rng, 3, 8, 8, 64, 777)
+        args = call(3, 8, 8, 64, 777)
         args[-1][:, :, -90:] = -1e9
         return args, {}
     if case == "masked_rows":           # -1e9 (uniform) and float32's lowest
-        args = _int4_call(dev, rng, 2, 8, 4, 64, 1500, bias_shape=(2, 8, 1500))
+        args = call(2, 8, 4, 64, 1500, bias_shape=(2, 8, 1500))
         args[-1][0, 1] = -1e9
         args[-1][1, 6] = torch.finfo(torch.float32).min
         return args, {}
     if case == "live_below_block":      # one block, fewer keys than block_k
-        args = _int4_call(dev, rng, 4, 8, 8, 64, 512)
+        args = call(4, 8, 8, 64, 512)
         rm = torch.tensor(rng.randint(0, 4, (4, 4)), dtype=torch.int32,
                           device=dev)
         return args, dict(row_map=rm, block_k=128, live_keys=50)
     if case == "live_ragged":           # 1001 keys in ranges of 32s
-        return _int4_call(dev, rng, 2, 4, 4, 64, 1200), dict(live_keys=1001)
+        return call(2, 4, 4, 64, 1200), dict(live_keys=1001)
     if case == "live_ragged_blocks":    # 11 blocks of 64 and 12 keys
-        return _int4_call(dev, rng, 2, 4, 4, 64, 1024), dict(
-            block_k=64, live_keys=716)
+        return call(2, 4, 4, 64, 1024), dict(block_k=64, live_keys=716)
     if case == "b1_g1":
-        return _int4_call(dev, rng, 1, 4, 1, 64, 3000), {}
+        return call(1, 4, 1, 64, 3000), {}
     if case == "row_map_one_row":       # every block from physical row 2
         rm = torch.full((4, 8), 2, dtype=torch.int32, device=dev)
-        return _int4_call(dev, rng, 4, 8, 8, 64, 512, rows_kv=4), dict(
-            row_map=rm, block_k=64)
+        return call(4, 8, 8, 64, 512, rows_kv=4), dict(row_map=rm,
+                                                       block_k=64)
     if case == "out_f32":
-        return _int4_call(dev, rng, 3, 16, 16, 64, 1792,
-                          q_dtype=torch.float32), {}
+        return call(3, 16, 16, 64, 1792, q_dtype=torch.float32), {}
     if case == "out_bf16":
-        return _int4_call(dev, rng, 3, 16, 16, 64, 1792), {}
-    if case == "rows_in_three_slots":   # 24 rows on one byte block
-        return _int4_call(dev, rng, 2, 24, 2, 32, 600), {}
+        return call(3, 16, 16, 64, 1792), {}
+    if case == "rows_in_three_slots":   # 24 rows on one byte block (int4)
+        return call(2, 24, 2, 32, 600), {}
     if case == "head_dim_256":
-        return _int4_call(dev, rng, 2, 4, 2, 256, 1000, scale_rows=4), {}
+        return call(2, 4, 2, 256, 1000, scale_rows=4), {}
+    if case == "small_heads":           # D 8: the CUDA cores, 4-byte copies
+        return call(3, 8, 2, 8, 320), {}
+    if case == "head_dim_128":          # the CUDA cores, 16-byte copies
+        return call(2, 8, 4, 128, 900), {}
+    if case == "ocr_gqa":               # 15 query heads over 5 kv heads
+        args = call(8, 15, 5, 64, 640, bias_shape=(1, 1, 640))
+        args[-1][..., 504:] = torch.finfo(torch.float32).min
+        return args, {}
+    if case == "beam_cross_b16":        # several waves, 5 beams a slot
+        args = call(16, 80, 16, 64, 1792)
+        args[-1][:, :, 1692:] = -1e9
+        return args, dict(head_map=tuple(range(16)) * 5)
     raise KeyError(case)
 
 
@@ -287,6 +312,57 @@ def test_decode_int4_cases(dev, case):
     assert got.dtype == args[0].dtype and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
                                rtol=2e-2)
+
+
+I8_CASES = INT4_CASES + ("small_heads", "head_dim_128", "ocr_gqa",
+                         "beam_cross_b16")
+
+
+@pytest.mark.parametrize("case", I8_CASES)
+def test_decode_i8_cases(dev, case):
+    """decode_i8, the Int8 policy of the cluster core, against plain_int8
+    in one launch at each of test_decode_int4_cases' options and split
+    edges, over the full int8 range with f32 scales (with int8 one head a
+    slot: the 24 rows over 2 heads take slots of 10 and 2 rows each), and
+    at head dims 8 and 128 (the CUDA cores), the OCR GQA and the beam cross
+    at b16."""
+    args, kw = _int4_case(dev, case, int8=True)
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu(*args, **kw)
+    assert _build.LAUNCHES["decode_i8"] == 1
+    ref = mxu_decode.plain_int8(*args, **kw)
+    assert got.dtype == args[0].dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+
+
+def test_decode_i8_longest_live_and_one_more(dev):
+    """The longest valid prefix decode_i8's plan fits in a cluster (13056
+    keys at one query row a head of 64; the old one-block kernel took
+    11958) runs; one key more is refused before any launch."""
+    rng = np.random.RandomState(41)
+    K = 20480
+    args = _int4_call(dev, rng, 1, 16, 16, 64, K, int8=True)
+    lo, hi = 1, K
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            mxu_decode.int4_call_plan(*args, live_keys=mid,
+                                      elem=mxu_decode.INT8)
+            lo = mid
+        except ValueError:
+            hi = mid
+    assert hi < K
+    _build.reset_launches()
+    got = mxu_decode.cross_decode_mxu(*args, live_keys=lo)
+    assert _build.LAUNCHES["decode_i8"] == 1
+    ref = mxu_decode.plain_int8(*args, live_keys=lo)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        mxu_decode.cross_decode_mxu(*args, live_keys=lo + 1)
+    assert _build.LAUNCHES["decode_i8"] == 0
 
 
 def test_decode_int4_longest_live_and_one_more(dev):
@@ -835,19 +911,13 @@ def test_lattice_never_reads_dead_segments(dev):
 
 
 def test_lattice_and_row_map_refuse_before_launch(dev):
-    """An odd kv-head count (a head across the nibble split), an odd
-    segment, n_live past the ring, and a row map on the CPU are refused
-    before any launch."""
+    """n_live of 0 or past the ring, a row map of the wrong shape, and a
+    row map on the CPU are refused before any launch."""
     rng = np.random.RandomState(29)
     *args, rm = _ring(dev, rng, True, 4, 16, 64, 512, 300, 128)
     _build.reset_launches()
-    odd = mxu_decode.pack_int4(torch.zeros((4, 512, 5 * 64),
-                                           dtype=torch.int8, device=dev))
-    osc = torch.zeros((4, 5, 512), dtype=torch.bfloat16, device=dev)
-    q5 = torch.zeros((4, 15, 64), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="G even"):
-        mxu_decode.lattice_self_int4(q5, odd, osc, odd, osc, args[-1][:, :1],
-                                     rm, 1, 128)
+    with pytest.raises(ValueError, match="n_live"):
+        mxu_decode.lattice_self_int4(*args, rm, 0, 128)
     with pytest.raises(ValueError, match="n_live"):
         mxu_decode.lattice_self_int4(*args, rm, 5, 128)
     with pytest.raises(ValueError, match="row_map"):
@@ -857,6 +927,32 @@ def test_lattice_and_row_map_refuse_before_launch(dev):
                                          block_k=128)
     assert _build.LAUNCHES["lattice_self_int4"] == 0
     assert _build.LAUNCHES["decode_int4"] == 0
+
+
+def test_lattice_odd_groups(dev):
+    """On decode_int4's core the lattice takes an odd kv-head count (15
+    query rows over 5 heads of 64, head 2 across the nibble split) with
+    odd segments: against its plain version, in one launch."""
+    rng = np.random.RandomState(43)
+    B, R, G, d, L, seg, n_live = 6, 15, 5, 64, 630, 45, 9
+    vals = rng.randint(-7, 8, (2, B, L, G * d))
+    kq, vq = (mxu_decode.pack_int4(torch.tensor(v, dtype=torch.int8,
+                                                device=dev)) for v in vals)
+    ks, vs = (torch.tensor(rng.rand(B, G, L) * 0.2, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    q = torch.tensor(rng.randn(B, R, d), device=dev).to(torch.bfloat16)
+    bias = torch.tensor(rng.randn(1, R, L) * 0.5, dtype=torch.float32,
+                        device=dev)
+    rm = torch.tensor(rng.randint(0, B, (B, L // seg)), dtype=torch.int32,
+                      device=dev)
+    args = (q, kq, ks, vq, vs, bias, rm, n_live, seg)
+    _build.reset_launches()
+    got = mxu_decode.lattice_self_int4(*args)
+    assert _build.LAUNCHES["lattice_self_int4"] == 1
+    assert _build.LAUNCHES["decode_int4"] == 0
+    ref = mxu_decode.plain_lattice_int4(*args)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                               rtol=2e-2)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

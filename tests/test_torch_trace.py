@@ -62,7 +62,8 @@ def test_decode_window_runs_its_steps(encoded, monkeypatch, beams, traced):
 
 def test_union_and_kinds():
     assert tp._union_us([(5, 6), (0, 2), (1, 3), (5.5, 5.7)]) == 4.0
-    assert tp.kind_of("decode_i8_kernel<true>(...)") == "decode attention"
+    assert tp.kind_of("decode_cluster_kernel<(anonymous namespace)::Int8, "
+                      "5, true>(...)") == "decode attention"
     assert tp.kind_of("nvjet_tst_64x8_64x16_4x1_v_bz_TNT") == "GEMM"
     assert tp.kind_of("vectorized_elementwise_kernel<4>") == \
         "elementwise / other"
