@@ -14,15 +14,21 @@ prints no result):
    for sm_90a, one nvcc per source, all at once; prints ptxas's registers,
    spills and static shared memory of the wgmma kernels (the three encoder
    forwards and the two float-bias backward kernels), of the OCR
-   megastep (one instantiation per batch tiling) and of the decode cluster
+   megastep (one instantiation per batch tiling), of the decode cluster
    core under both element policies, int4 and int8 (one instantiation per
-   count of query rows a CTA serves);
+   count of query rows a CTA serves), of bias_build_i8 and of
+   normalize_u8;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
    989 TFLOP/s bf16, whichever is larger) and the share of the bound it
    reaches, and, where one PyTorch call computes the same function, that
-   call's time and the kernel's ratio to it. flash_i8 over the int8 slab
+   call's time and the kernel's ratio to it. bias_build_i8 bit for bit at
+   B=2, 8 and 48 (H=16, L=1536) and on the packed slab (B=8, L=1280, seeded
+   positions), from float32 tables and from the same tables in bf16 (as
+   the served model holds them); its launches alone and the whole wrapper
+   call each timed on the bf16 tables.
+   flash_i8 over the int8 slab
    at B=2 and at the serving batch B=8, L=1536, H=16, D=64, 25 % of the
    keys masked, against SDPA with the dequantised bias and mask as a bf16
    attn_mask. flash_relbias (the bias
@@ -48,7 +54,8 @@ prints no result):
    valid prefix, and both; lattice_self_int4 at 1 and 4 live segments;
    normalize_u8 over [8, 512, 512, 3] uint8 pages (VTLConfig().image_size,
    the OCR page size) into bf16 and float32, and [48, ...] into bf16, bit
-   for bit. No PyTorch call reads row-mapped packed int4 / scaled int8 K/V
+   for bit, timed over enough page batches in turn that each call reads
+   its pages from HBM. No PyTorch call reads row-mapped packed int4 / scaled int8 K/V
    or normalises uint8 in one call: their library time is none;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
@@ -167,10 +174,16 @@ FLASH_BWD_SYMBOLS = ("flash_bias_dkv_kernel", "flash_bias_dq_kernel")
 # tensor cores or CUDA cores)
 MEGASTEP_SYMBOLS = ("ocr_megastep_kernel",)
 DECODE_SYMBOLS = ("decode_cluster_kernel",)
+# bias_build_i8 (its table kernel; the slab kernel on aligned / ragged
+# rows) and the image front end (warp tiles / bytes, float32 / bf16)
+ELEMENTWISE_SYMBOLS = ("bias_build_table", "bias_build_i8_kernel",
+                       "normalize_u8_")
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+# its L2 (H100 SXM: 50 MB)
+L2_BYTES = 50 * 2 ** 20
 # the CUDA cores (H100 SXM, 700 W): 67 TFLOP/s FP32 is 128 lanes a clock on
 # each of 132 SMs at 1.98 GHz, also the rate at which an SM issues warp
 # instructions (4 schedulers x 32 lanes); shared memory serves 32 words a
@@ -323,6 +336,25 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fn, inputs: list):
+    """A call of fn on the next of `inputs` in turn that keeps its output
+    until that input comes round again: with the inputs and outputs
+    together several times the card's L2 (L2_BYTES), each call reads its
+    input from HBM and writes its output over lines no longer in L2."""
+    keep, turn = [None] * len(inputs), [0]
+
+    def call():
+        k = turn[0] % len(inputs)
+        turn[0] += 1
+        keep[k] = fn(inputs[k])
+    return call
+
+
+def turns_past_l2(per_call_bytes: int) -> int:
+    """How many inputs `in_turns` needs to cycle over 4 x L2_BYTES."""
+    return max(2, -(-4 * L2_BYTES // per_call_bytes))
+
+
 def within(name: str, got, ref) -> float:
     """Max |got - ref|; raises if any entry is outside TOL[name]."""
     import torch
@@ -390,6 +422,84 @@ def report(name: str, shape: str, res: dict) -> None:
           f"{'none' if lib is None else f'{lib:.4f} ms'}{ratio}", flush=True)
 
 
+def bias_inputs(rng, dev, batch: int, length: int,
+                packed: bool = False) -> tuple:
+    """Inputs of bias_build_i8 drawn from `rng`: (t1, th, tv)
+    [32, 16] float32 tables, sorted random boxes [B, L, 4] with text slots
+    300-511 padded (zero boxes), the key mask, and for the packed slab the
+    original indices of L of 1536 positions, sorted. Returns (args,
+    positions)."""
+    import torch
+
+    tabs = [torch.tensor(rng.randn(32, 16).astype(np.float32) * 0.5,
+                         device=dev) for _ in range(3)]
+    bbox_np = np.sort(rng.rand(batch, length, 4).astype(np.float32), axis=-1)
+    bbox_np[:, 300:512] = 0.0                       # padded text slots
+    bbox = torch.tensor(bbox_np, device=dev)
+    mask = (bbox.sum(-1) > 0).to(torch.int32)
+    pos = None
+    if packed:
+        pos = torch.tensor(np.stack([np.sort(rng.permutation(1536)[:length])
+                                     for _ in range(batch)]),
+                           dtype=torch.int32, device=dev)
+    return (*tabs, bbox, mask, length, 32, 128, 100, 100), pos
+
+
+# bias_build_i8's shapes: (batch, length, packed); the first is the headline
+BIAS_SHAPES = ((2, 1536, False), (8, 1536, False), (48, 1536, False),
+               (8, 1280, True))
+
+
+def check_bias_build(dev, rng) -> tuple:
+    """bias_build_i8 bit for bit against its plain version at BIAS_SHAPES
+    (the headline's inputs drawn from `rng`, the others' from seeds of
+    their own), from float32 tables and from the same tables in bf16, then
+    timed on the bf16 ones, as served, three ways: the kernels' launches
+    alone (events around the launch), the whole wrapper call, the plain
+    version; beside its bound (the slab's bytes). Returns the headline's
+    result and slab."""
+    import torch
+
+    from markushgrapher_torch.ops import bias_build
+
+    first = None
+    for n, (b, length, packed) in enumerate(BIAS_SHAPES):
+        args, pos = bias_inputs(
+            rng if n == 0 else np.random.RandomState(SEED + 100 + n), dev, b,
+            length, packed)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (*(t.to(dt) for t in args[:3]), *args[3:])
+            got, s_got = bias_build.encoder_position_bias_kernel_i8(
+                *args, positions=pos)
+            ref, s_ref = bias_build.plain(*args, positions=pos)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref) and torch.equal(s_got, s_ref)):
+                raise AssertionError(
+                    f"bias_build_i8 B={b} L={length} {dt}: "
+                    f"{int((got != ref).sum())} entries and "
+                    f"{int((s_got != s_ref).sum())} scales differ from plain")
+            del ref
+        launch = bias_build.kernel_call(*args[:4], *args[5:], positions=pos)
+        iters = 50 if b < 48 else 10
+        res = dict(max_abs_err=0.0, ms=cuda_ms(launch, iters),
+                   plain_ms=cuda_ms(lambda: bias_build.plain(
+                       *args, positions=pos), 3 if b < 48 else 1, 1),
+                   library_ms=None,
+                   **bound(nbytes(*args[:5], got, s_got,
+                                  *([] if pos is None else [pos])), 0))
+        wrapper_ms = cuda_ms(lambda: bias_build.encoder_position_bias_kernel_i8(
+            *args, positions=pos), iters)
+        report("bias_build_i8", f"B={b} H=16 L={length}"
+               f"{' packed' if packed else ''} (bit-exact from float32 and "
+               f"bf16 tables; timed on bf16; whole wrapper "
+               f"{wrapper_ms:.4f} ms)", res)
+        if first is None:
+            first = res, got
+        del got, launch
+        torch.cuda.empty_cache()
+    return first
+
+
 def check_kernels(dev, pack: int) -> dict:
     """Each kernel against its plain version at the main paths' shapes
     (`pack`: the batch's cross pack length). Returns {name: {max_abs_err,
@@ -404,28 +514,10 @@ def check_kernels(dev, pack: int) -> dict:
     rng = np.random.RandomState(SEED)
     out = {}
 
-    # K1: int8 bias slab, B=2, H=16, L=1536 (512 text + 1024 patches)
-    B, H, L, NB = 2, 16, 1536, 32
-    tabs = [torch.tensor(rng.randn(NB, H).astype(np.float32) * 0.5,
-                         device=dev) for _ in range(3)]
-    bbox_np = np.sort(rng.rand(B, L, 4).astype(np.float32), axis=-1)
-    bbox_np[:, 300:512] = 0.0                       # padded text slots
-    bbox = torch.tensor(bbox_np, device=dev)
-    mask = (bbox.sum(-1) > 0).to(torch.int32)
-    args = (*tabs, bbox, mask, L, NB, 128, 100, 100)
-    got, s_got = bias_build.encoder_position_bias_kernel_i8(*args)
-    ref, s_ref = bias_build.plain(*args)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, ref) and torch.equal(s_got, s_ref)):
-        n = int((got != ref).sum())
-        raise AssertionError(f"bias_build_i8: {n} entries differ from plain")
-    out["bias_build_i8"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: bias_build.encoder_position_bias_kernel_i8(*args)),
-        plain_ms=cuda_ms(lambda: bias_build.plain(*args)),
-        library_ms=None, **bound(nbytes(*tabs, bbox, mask, got, s_got), 0))
-    report("bias_build_i8", f"B={B} H={H} L={L} (bit-exact)",
-           out["bias_build_i8"])
+    # K1: int8 bias slab at B=2 (the headline), B=8 and B=48, and the
+    # packed slab, bit-exact
+    out["bias_build_i8"], got = check_bias_build(dev, rng)
+    B, H, L = 2, 16, 1536
 
     # K2: flash over the int8 slab, bf16 q/k/v, 25 % of keys padded, at
     # B=2 (the headline) and at the serving batch B=8 (the slab repeated,
@@ -579,7 +671,9 @@ def check_kernels(dev, pack: int) -> dict:
     # normalize_u8 over uint8 page batches: OCR / VTL pages (image size
     # 512) at b8 into bf16 (the headline) and float32 (what
     # preprocess_patchify takes), and at b48 into bf16. Exact against the
-    # plain version; bound by its bytes, 1 in and 2 or 4 out per value
+    # plain version; bound by its bytes, 1 in and 2 or 4 out per value,
+    # and timed over copies of the pages in turn, so that it is HBM that
+    # serves those bytes and not the L2
     from markushgrapher_torch.config import VTLConfig
     from markushgrapher_torch.ops import preprocess
 
@@ -592,17 +686,20 @@ def check_kernels(dev, pack: int) -> dict:
         if not torch.equal(got, preprocess.plain_normalize_u8(pages, 0.5,
                                                               0.5, dt)):
             raise AssertionError("normalize_u8 differs from plain")
+        copies = [pages] + [pages.clone() for _ in range(
+            turns_past_l2(nbytes(pages, got)) - 1)]
         res = dict(max_abs_err=0.0,
-                   ms=cuda_ms(lambda: preprocess.normalize_u8(
-                       pages, 0.5, 0.5, dt), 50),
-                   plain_ms=cuda_ms(lambda: preprocess.plain_normalize_u8(
-                       pages, 0.5, 0.5, dt), 20),
+                   ms=cuda_ms(in_turns(lambda x: preprocess.normalize_u8(
+                       x, 0.5, 0.5, dt), copies), 50),
+                   plain_ms=cuda_ms(in_turns(
+                       lambda x: preprocess.plain_normalize_u8(
+                           x, 0.5, 0.5, dt), copies), 20),
                    library_ms=None,
                    **bound(nbytes(pages, got), 2 * pages.numel()))
         report("normalize_u8", f"[{b}, {side}, {side}, 3] uint8 -> "
                f"{str(dt).split('.')[-1]}", res)
         out["normalize_u8"] = res
-        del pages, got
+        del pages, got, copies
     return out
 
 
@@ -1670,7 +1767,7 @@ def main() -> None:
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
     for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
                                    FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS +
-                                   DECODE_SYMBOLS):
+                                   DECODE_SYMBOLS + ELEMENTWISE_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack

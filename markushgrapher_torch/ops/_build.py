@@ -52,9 +52,13 @@ LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # t1, th, tv, scales, hx, vy, positions, lut1, lut2,
-    # B, H, L, nb, max1, max2, scaling, out, stream
-    "mg_bias_build_i8": [_P] * 9 + [_I] * 6 + [_F, _P, _P],
+    # t1, th, tv, table dtype, bbox, positions, lut1, lut2,
+    # B, H, L, nb, max1, max2, scaling, ranges, per_cta, smem,
+    # work, work_words, out, scales, stream
+    "mg_bias_build_i8": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _I]
+    + [ctypes.c_longlong, _I, _P, ctypes.c_longlong] + [_P] * 3,
+    # smem: the CTAs of that many bytes the card holds at once
+    "mg_bias_build_i8_resident": [_I],
     # q, k, v, bias, scales, key_mask, B, L, H, D, out, stream
     "mg_flash_i8": [_P] * 6 + [_I] * 4 + [_P, _P],
     # q, kq, ks, vq, vs, bias, slots, row_map, B, R, G, D, K, scale_rows,

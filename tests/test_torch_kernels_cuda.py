@@ -56,6 +56,106 @@ def test_bias_builder_packed_positions(dev):
     assert torch.equal(got, ref) and torch.equal(s, s_ref)
 
 
+def _bias_args(dev, rng, batch, length, heads=16, dtype=torch.float32,
+               packed=False):
+    tabs = [torch.tensor(rng.randn(32, heads) * 0.5, device=dev).to(dtype)
+            for _ in range(3)]
+    bbox = torch.tensor(np.sort(rng.rand(batch, length, 4), axis=-1),
+                        dtype=torch.float32, device=dev)
+    bbox[:, length // 2: length // 2 + 17] = 0.0       # padded slots
+    pos = None
+    if packed:
+        pos = torch.tensor(np.stack([np.sort(rng.permutation(3 * length)[
+            :length]) for _ in range(batch)]), dtype=torch.int32, device=dev)
+    return (*tabs, bbox, None, length, 32, 128, 100, 100), pos
+
+
+@pytest.mark.parametrize("length", [200, 320])
+@pytest.mark.parametrize("packed", [False, True])
+def test_bias_build_ragged_lengths(dev, length, packed):
+    """L = 200 is no multiple of 16 (byte stores, a ragged last item);
+    L = 320 is (16-byte row stores); with and without positions. Three
+    samples, so CTAs' item ranges cross samples."""
+    args, pos = _bias_args(dev, np.random.RandomState(length + packed), 3,
+                           length, packed=packed)
+    _build.reset_launches()
+    got, s = bias_build.encoder_position_bias_kernel_i8(*args, positions=pos)
+    assert _build.LAUNCHES["bias_build_i8"] == 1
+    ref, s_ref = bias_build.plain(*args, positions=pos)
+    assert torch.equal(got, ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("heads,dtype", [(6, torch.bfloat16),
+                                         (12, torch.float16),
+                                         (16, torch.bfloat16)])
+def test_bias_build_heads_and_table_types(dev, heads, dtype):
+    """Head counts that pad to 4 (6: a group of 2 heads, 12: three groups),
+    tables read in their own type (float16: converted to float32 first)."""
+    args, pos = _bias_args(dev, np.random.RandomState(heads), 2, 256,
+                           heads=heads, dtype=dtype)
+    got, s = bias_build.encoder_position_bias_kernel_i8(*args)
+    ref, s_ref = bias_build.plain(*args)
+    assert torch.equal(got, ref) and torch.equal(s, s_ref)
+
+
+def test_bias_build_scales_and_half_integers(dev):
+    """Table maxima whose amax / 127 and amax * f32(1/127) round apart (the
+    scale is the plain version's on the card), and values whose quotient by
+    the scale lies on a half-integer or one ulp beside it (rint's ties to
+    even)."""
+    rng = np.random.RandomState(7)
+    inv = np.float32(1) / np.float32(127)
+    cand = rng.uniform(1, 100, 200000).astype(np.float32)
+    apart = cand[(cand / np.float32(127)) != (cand * inv)][:16]
+    assert len(apart) == 16
+    t1 = rng.uniform(-1, 1, (32, 16)).astype(np.float32)
+    t1[0] = apart
+    for h in range(16):
+        s = np.float32(np.float32(apart[h] * inv) + np.float32(1e-12))
+        for n, k in enumerate(range(-60, 60, 8)):
+            v0 = np.float32(np.float32(k + 0.5) * s)
+            t1[1 + n, h] = np.nextafter(v0, np.float32(np.inf * (n % 3 - 1)),
+                                        dtype=np.float32) if n % 3 != 1 else v0
+    zeros = torch.zeros((32, 16), device=dev)
+    tabs = (torch.tensor(t1, device=dev), zeros, zeros)
+    bbox = torch.tensor(np.sort(rng.rand(2, 256, 4), axis=-1),
+                        dtype=torch.float32, device=dev)
+    args = (*tabs, bbox, None, 256, 32, 128, 100, 100)
+    got, s = bias_build.encoder_position_bias_kernel_i8(*args)
+    ref, s_ref = bias_build.plain(*args)
+    assert torch.equal(s, s_ref) and torch.equal(got, ref)
+
+
+def test_bias_build_one_launch_no_copy(dev):
+    """After the first call (device LUTs cached, the card's occupancy
+    asked), a call makes at most two kernel launches (the table kernel and
+    the slab kernel), both of bias_build_i8, and no host -> device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, pos = _bias_args(dev, np.random.RandomState(3), 2, 512, packed=True)
+    bias_build.encoder_position_bias_kernel_i8(*args, positions=pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bias_build.encoder_position_bias_kernel_i8(*args, positions=pos)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) <= 2, kernels
+    assert kernels and all("bias_build" in n for n in kernels), kernels
+    assert not [n for n in names if "HtoD" in n], names
+
+
+def test_bias_build_refuses_before_launch(dev):
+    """A length whose centres do not fit a CTA's shared memory."""
+    args, _ = _bias_args(dev, np.random.RandomState(5), 1, 16384)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        bias_build.encoder_position_bias_kernel_i8(*args)
+    assert _build.LAUNCHES["bias_build_i8"] == 0
+
+
 def test_flash_ragged_length(dev):
     """L = 200 is no multiple of the 64-row tiles: the edges are masked."""
     rng = np.random.RandomState(1)
@@ -958,7 +1058,8 @@ def test_lattice_odd_groups(dev):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_normalize_u8_bit_exact(dev, out_dtype):
     """normalize_u8 against its plain version bit for bit: an OCR page
-    batch, a ragged size (the scalar tail), a view at a 1-byte offset (the
+    batch, a ragged size (the scalar tail), aligned inputs shorter than one
+    512-byte tile (the tail alone), a view at a 1-byte offset (the
     byte-at-a-time path), and ImageNet's mean / std."""
     from markushgrapher_torch.ops import preprocess
 
@@ -967,7 +1068,11 @@ def test_normalize_u8_bit_exact(dev, out_dtype):
                          dtype=torch.uint8, device=dev)
     flat = torch.tensor(rng.randint(0, 256, 1001), dtype=torch.uint8,
                         device=dev)
+    short = [torch.tensor(rng.randint(0, 256, n), dtype=torch.uint8,
+                          device=dev) for n in (1, 16, 511)]
+    assert all(x.data_ptr() % 16 == 0 for x in short)
     for x, mean, std in ((pages, 0.5, 0.5), (flat[:999], 0.5, 0.5),
+                         *((x, 0.5, 0.5) for x in short),
                          (flat[1:], 0.485, 0.229)):
         _build.reset_launches()
         got = preprocess.normalize_u8(x, mean, std, out_dtype)
