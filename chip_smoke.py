@@ -40,7 +40,11 @@ prints no result):
    megastep at OCRConfig() width, batch 8, ring L0 + 512, at p = L0 and
    p = L0 + 400, and at batch 48 (MEGA_BATCH) at p = L0 + 400;
    decode_int4 (G = 5) and decode_i8 (15 rows over 5 kv heads) over that
-   ring; decode_int4 also with the 5 beams folded over the greedy cross's
+   ring, and over continuous batching's ring (L0 + 256, rows at their own
+   positions spread over [103, 358] under a per-row mask [B, 1, S], read
+   up to the block of the largest), and decode_i8 on decode_bench.py's
+   seeded OCR ring (full-range int8, q at 0.5 scale, a random bias up to
+   p = 503); decode_int4 also with the 5 beams folded over the greedy cross's
    1792 keys, beside the greedy cross over the same slab; both decode
    kernels also at several waves of CTAs: the greedy cross at B=48 and the
    beam cross at B=16, Kp=1792. The float-bias flash forward at its serving shapes
@@ -73,9 +77,18 @@ prints no result):
    states are held to the unpacked ones at the valid positions, both on the
    plain path in float32. Then OCRConfig() (seeded random bf16 weights)
    through `ChemicalOCR.generate_batch` on seeded uint8 pages at batch 8,
-   eos never firing, along four paths: int4 KV and int8 KV (256 new
+   eos never firing, along four paths: int4 KV and int8 KV (128 new
    tokens), the megastep (int8 KV, one launch per step, 512), and int4 KV
-   under `block_skip` (128). For each: the launch counts of every kernel
+   under `block_skip` (128); then through `ChemicalOCR.stream_retired`
+   (continuous batching) along two (OCR_STREAM_PATHS: int4 KV under
+   `block_skip`, int8 KV), 16 seeded pages with seeded lognormal budgets
+   (median 64, sigma 1, clipped to [16, 256], every 8th page at 256), 8
+   rows, refill waves of 4, 32 steps a chunk: every page back once with
+   exactly its budget of ids, one decode launch a layer a step, the per-row
+   bias and (under block_skip) live keys below the ring's length in the
+   decode calls, and the kernel calls of the first 8 steps and of the 8
+   after the first refill wave held to their plain versions. For each
+   path: the launch counts of every kernel
    (every count set to 0 just before the path, read just after), the forms
    of the decode calls (through a row map, up to a valid prefix, the
    lattice) that the path's options must show, and every kernel call of
@@ -96,7 +109,9 @@ prints no result):
    from the launch counters (int4 greedy at batch 8: at most one per
    attention call, 48); OCR prefill ms, ms/step and img/s of the int4, int8 and
    megastep paths at batch 8 and of the megastep at batch 48, 512 new
-   tokens; and one
+   tokens; the int4 stream (warm): ms per decode step beside the batched
+   int4 path's, img/s, tokens/s, the first and the refill prefills' ms and
+   decode launches a step; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
    fallback cells where random weights emit none) -> SampleEncoder /
    DataCollator with pixels from `data.device_pixels` -> MG greedy int4,
@@ -277,14 +292,27 @@ OCR_BATCH, OCR_TOKENS = 8, 512
 MEGA_BATCH = 48
 OCR_PATHS = (
     ("ocr_int4", dict(quant_kv=True, int4_kv=True, quant_weights=True),
-     "decode_int4", dict(tokens=256)),
+     "decode_int4", dict(tokens=128)),
     ("ocr_int8", dict(quant_kv=True, quant_weights=True), "decode_i8",
-     dict(tokens=256)),
+     dict(tokens=128)),
     ("ocr_mega", dict(quant_kv=True, quant_weights=True, megastep=True),
      "ocr_megastep", {}),
     ("ocr_int4_block_skip",
      dict(quant_kv=True, int4_kv=True, quant_weights=True), "decode_int4",
      dict(block_skip=True, tokens=128)))
+# continuous batching's OCR paths (phase 4; the first also timed in phase
+# 5): STREAM_PAGES seeded pages through OCR_BATCH rows, at most STREAM_TOKENS
+# new tokens, refill waves of STREAM_REFILL rows, STREAM_INNER steps a chunk,
+# eos never firing and pad_id -1 (no token id), so each page's ids are
+# exactly its budget long; (name, OCREngineConfig flags, the kernel each
+# decode step launches, the model's block_skip)
+STREAM_PAGES, STREAM_TOKENS, STREAM_REFILL, STREAM_INNER = 16, 256, 4, 32
+OCR_STREAM_PATHS = (
+    ("ocr_int4_stream",
+     dict(quant_kv=True, int4_kv=True, quant_weights=True), "decode_int4",
+     True),
+    ("ocr_int8_stream", dict(quant_kv=True, quant_weights=True),
+     "decode_i8", False))
 
 
 def gpu_line() -> str:
@@ -386,12 +414,12 @@ def bound(n_bytes: float, flops: float) -> dict:
 
 def decode_bound(q, kq, ks, vq, vs, bias, out) -> dict:
     """Bound of one decode attention call on this run's data: only the keys
-    that some query row does not mask (bias above -1e8) need their K/V and
-    scale bytes read; 4 operations per (query row, live key, head dim)."""
-    kv_len = kq.shape[1]
-    live = int((bias.amax(dim=(0, 1)) > -1e8).sum())
-    kv_bytes = nbytes(kq, vq, ks, vs) * live / kv_len
-    flops = 4 * q.shape[0] * q.shape[1] * live * q.shape[2]
+    that some query row of a sample does not mask (bias above -1e8) need
+    their K/V and scale bytes read (each sample its own keys under a
+    per-row mask); 4 operations per (query row, live key, head dim)."""
+    share = float((bias.amax(dim=1) > -1e8).float().mean())
+    kv_bytes = nbytes(kq, vq, ks, vs) * share
+    flops = 4 * q.shape[0] * q.shape[1] * share * kq.shape[1] * q.shape[2]
     return bound(nbytes(q, bias, out) + kv_bytes, flops)
 
 
@@ -1065,6 +1093,12 @@ def ocr_ring_len(model) -> int:
     return ring + -ring % 128
 
 
+def stream_ring_len(model) -> int:
+    """The stream paths' ring: L0 + STREAM_TOKENS rounded up to 128."""
+    ring = ocr_prefix_len(model) + STREAM_TOKENS
+    return ring + -ring % 128
+
+
 def mega_inputs(model, gen, batch: int, ring: int, pos: int) -> tuple:
     """The megastep's step inputs for `model` (OCRConfig() in phase 3):
     int8 K / V rings [L, batch, ring, G D] with scales in [0, 0.03) whose
@@ -1161,6 +1195,45 @@ def check_ocr_kernels(dev, model) -> dict:
         report(name, f"OCR ring B={b} R={heads} G={groups} S={ring} "
                f"p={pos}", decode_run(name, kernel, plain,
                                       (q, *kv, bias), {}))
+
+    # continuous batching's ring (L0 + STREAM_TOKENS): rows at their own
+    # positions, spread over [103, 358], under a per-row mask [B, 1, S],
+    # read up to the 128-key block of the largest; past its slot a row's
+    # keys hold another page's leftovers
+    ring = stream_ring_len(model)
+    slots = rng.permutation(np.linspace(103, 358, b).round().astype(int))
+    keys = torch.arange(ring, device=dev)
+    bias = torch.where(keys <= torch.tensor(slots, device=dev)[:, None, None],
+                       0.0, torch.finfo(torch.float32).min)
+    skip = mxu_decode.valid_prefix_blocks(ring, int(slots.max()), 128)
+    for name, kernel, plain, top in (
+            ("decode_int4", mxu_decode.cross_decode_mxu_int4,
+             mxu_decode.plain_int4, 8),
+            ("decode_i8", mxu_decode.cross_decode_mxu,
+             mxu_decode.plain_int8, 128)):
+        kv = []
+        for _ in range(2):
+            vt = torch.tensor(rng.randint(1 - top, top, size=(b, ring, dkv)),
+                              dtype=torch.int8, device=dev)
+            st = torch.tensor(rng.rand(b, groups, ring).astype(np.float32)
+                              * 0.05, device=dev)
+            kv += ([mxu_decode.pack_int4(vt), st.to(torch.bfloat16)]
+                   if top == 8 else [vt, st])
+        report(name, f"OCR stream ring B={b} R={heads} G={groups} S={ring} "
+               f"slots {sorted(slots.tolist())} live_keys "
+               f"{skip['live_keys']}", decode_run(name, kernel, plain,
+                                                  (q, *kv, bias), skip))
+
+    # decode_bench.py's seeded int8 OCR ring (full-range values, q at 0.5
+    # scale, a random bias up to position 503)
+    import decode_bench
+
+    label = "OCR ring B=8 R=15 G=5 S=640"
+    args, kw = {lab: (a, k) for lab, a, k in decode_bench.shapes(
+        dev, "i8")}[label]
+    report("decode_i8", f"decode_bench.py's {label} p=503", decode_run(
+        "decode_i8", mxu_decode.cross_decode_mxu, mxu_decode.plain_int8,
+        args, kw))
     return out
 
 
@@ -1253,6 +1326,123 @@ def time_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
                 img_per_s=pages.shape[0] / total)
 
 
+def stream_budgets() -> np.ndarray:
+    """The stream pages' token budgets: seeded lognormal (median 64, sigma
+    1.0) clipped to [16, STREAM_TOKENS], every 8th page at STREAM_TOKENS."""
+    rng = np.random.RandomState(SEED + 5)
+    out = np.clip(np.round(64 * np.exp(rng.randn(STREAM_PAGES))), 16,
+                  STREAM_TOKENS).astype(np.int64)
+    out[7::8] = STREAM_TOKENS
+    return out
+
+
+@contextlib.contextmanager
+def stream_probe(eng):
+    """Count the stream's decode steps and time its prefills (the first
+    fill and each refill wave, synchronised on both sides): yields a dict
+    with "steps" and "prefill_ms", and "waves", called on the first wave's
+    swap before it runs (a hook the caller may set)."""
+    import torch
+
+    probe = dict(steps=0, prefill_ms=[], waves=0, on_wave=None)
+    model, step_fn = eng.model, eng.model.decode_step
+    prefill_fn, swap_fn = eng._stream_prefill, eng._stream_swap
+
+    def step(*a, **kw):
+        probe["steps"] += 1
+        return step_fn(*a, **kw)
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill_fn(*a, **kw)
+        torch.cuda.synchronize()
+        probe["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def swap(*a, **kw):
+        if probe["waves"] == 0 and probe["on_wave"]:
+            probe["on_wave"]()
+        probe["waves"] += 1
+        return swap_fn(*a, **kw)
+
+    model.decode_step, eng._stream_prefill, eng._stream_swap = (
+        step, prefill, swap)
+    try:
+        yield probe
+    finally:
+        del model.decode_step, eng._stream_prefill, eng._stream_swap
+
+
+def run_stream(model, tok, pages, budgets, flags, dev, checked: int = 0):
+    """One continuous-batching run through ChemicalOCR.stream_retired over
+    `pages` with `budgets`, launch counts zeroed just before and read just
+    after; with checked > 0 every decode kernel call of the first `checked`
+    steps, and of the first `checked` steps after the first refill wave,
+    held to its plain version on the same inputs."""
+    import torch
+
+    from markushgrapher_torch.ocr.engine import ChemicalOCR, OCREngineConfig
+    from markushgrapher_torch.ops import _build
+
+    eng = ChemicalOCR(model, tok, OCREngineConfig(
+        max_new_tokens=STREAM_TOKENS, batch_size=OCR_BATCH, eos_id=-1,
+        pad_id=-1, **flags), device=str(dev))
+    calls = checked * model.cfg.text.num_layers
+    errs: dict = {}
+    with (checked_kernels(errs, calls) if checked else
+          contextlib.nullcontext([0])) as left, stream_probe(eng) as probe:
+        probe["on_wave"] = lambda: left.__setitem__(0, calls)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        retired = list(eng.stream_retired(
+            pages, budgets, refill_batch=STREAM_REFILL, inner=STREAM_INNER))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    forms = errs.pop("forms", None)
+    return dict(retired=retired, launches=launches, total_s=total,
+                forms=forms, steps=probe["steps"], waves=probe["waves"],
+                prefill_ms=probe["prefill_ms"],
+                inside={name: (max(e), len(e)) for name, e in errs.items()
+                        if e})
+
+
+def check_stream(name: str, res: dict, budgets, kname: str, block_skip: bool,
+                 layers: int, vocab: int) -> None:
+    """A stream path's run: every page back once with exactly its budget
+    of token ids (pad -1 after), the kernel launched once a layer a step and
+    no other; where the run checked its kernel calls, the decode calls'
+    forms (per-row bias; under block_skip live keys below the ring's
+    length) and the kernel checked."""
+    order = [i for i, _ in res["retired"]]
+    if sorted(order) != list(range(len(budgets))):
+        raise AssertionError(f"{name}: pages returned {order}")
+    for i, ids in res["retired"]:
+        b = int(budgets[i])
+        if ids.shape != (STREAM_TOKENS,) or bool((ids[:b] < 0).any()) or \
+                bool((ids[:b] >= vocab).any()) or bool((ids[b:] != -1).any()):
+            raise AssertionError(f"{name}: page {i} (budget {b}) ids "
+                                 f"{ids.tolist()}")
+    want = {k: 0 for k in KERNELS}
+    want[kname] = layers * res["steps"]
+    if res["launches"] != want:
+        raise AssertionError(f"{name}: launch counts {res['launches']} != "
+                             f"{want} ({res['steps']} steps)")
+    if res["forms"] is None:
+        return
+    need = {f"{kname} per-row bias"}
+    if block_skip:
+        need |= {f"{kname} live_keys", f"{kname} live_keys < keys"}
+    if not need <= res["forms"]:
+        raise AssertionError(f"{name}: decode calls {sorted(res['forms'])} "
+                             f"lack the forms {sorted(need)}")
+    if set(res["inside"]) != {kname}:
+        raise AssertionError(f"{name}: kernels checked inside the model: "
+                             f"{sorted(res['inside'])}")
+
+
 def time_pipeline(ocr, mg, mt, cfg, pages, dev) -> dict:
     """uint8 pages -> OCR (int4 KV) -> cells -> MG greedy int4 over the int8
     slab (`mg` is a model on that route and scheme), timed end to end
@@ -1331,10 +1521,12 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
     others: TOL, on the attention output before the o-projection and the
     residual add), and the kernel's output goes on. errs[name] collects the
     max abs error of every checked call, errs["forms"] the forms of the
-    decode kernels' calls ("decode_int4 row_map+live_keys", ...). With
+    decode kernels' calls ("decode_int4 row_map+live_keys", "decode_int4
+    per-row bias", "decode_int4 live_keys < keys", ...). With
     decode_calls >= 0 only that many decode-kernel calls are checked; later
-    ones go to the kernel alone. The plain versions launch no kernel, so the
-    launch counts stay those of the path."""
+    ones go to the kernel alone (the context yields that count as a
+    one-item list, which the caller may raise again). The plain versions
+    launch no kernel, so the launch counts stay those of the path."""
     from markushgrapher_torch.ops import (bias_build, flash_attention,
                                           flash_relbias, mxu_decode)
 
@@ -1364,6 +1556,11 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
                 forms.add(" ".join([name] + ["+".join(
                     k for k in ("row_map", "live_keys")
                     if kw.get(k) is not None)]).strip())
+                if args[5].shape[0] > 1:
+                    forms.add(f"{name} per-row bias")
+                if kw.get("live_keys") is not None \
+                        and kw["live_keys"] < args[1].shape[1]:
+                    forms.add(f"{name} live_keys < keys")
                 if left[0] == 0:
                     return kernel(*args, **kw)
                 left[0] -= 1
@@ -1382,7 +1579,7 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
         errs.setdefault(name, [])
         setattr(mod, attr, check(name, saved[name], plain))
     try:
-        yield
+        yield left
     finally:
         for name, (mod, attr, _) in sites.items():
             setattr(mod, attr, saved[name])
@@ -1908,6 +2105,37 @@ def main() -> None:
             print(f"  row {r}: {text[:120]!r}", flush=True)
         for kn, n in res["launches"].items():
             launches[kn] = launches.get(kn, 0) + n
+    # phase 4, OCR continuous batching: STREAM_PAGES pages with per-page
+    # budgets through ChemicalOCR.stream_retired
+    stream_pages = torch.tensor(np.random.RandomState(SEED + 6).randint(
+        0, 256, (STREAM_PAGES, 512, 512, 3)), dtype=torch.uint8, device=dev)
+    budgets = stream_budgets()
+    print(f"OCR stream: {STREAM_PAGES} pages, budgets {budgets.tolist()}, "
+          f"batch {OCR_BATCH}, refill waves of {STREAM_REFILL}, "
+          f"{STREAM_INNER} steps a chunk, ring {stream_ring_len(ocr)}",
+          flush=True)
+    for name, flags, kname, block_skip in OCR_STREAM_PATHS:
+        routed = copy.copy(ocr)
+        routed.block_skip = block_skip
+        res = run_stream(routed, tok, stream_pages, budgets, flags, dev,
+                         CHECKED_STEPS)
+        print(f"{name}: {res['steps']} decode steps, {res['waves']} refill "
+              f"waves, retirement order {[i for i, _ in res['retired']]}, "
+              f"launches {res['launches']}; decode forms "
+              f"{sorted(res['forms'])}; first run {res['total_s']:.2f} s",
+              flush=True)
+        check_stream(name, res, budgets, kname, block_skip, t.num_layers,
+                     t.vocab_size)
+        for kn, (err, n) in res["inside"].items():
+            print(f"  inside the model, {kn} vs plain on the same inputs: {n} "
+                  f"calls ({CHECKED_STEPS} decode steps from the start and "
+                  f"from the first refill wave), max abs err {err:.3e}, all "
+                  f"within tolerance", flush=True)
+        for i, ids in res["retired"][:2]:
+            print(f"  page {i}: {tok.decode(ids[ids >= 0].tolist())[:120]!r}",
+                  flush=True)
+        for kn, n in res["launches"].items():
+            launches[kn] = launches.get(kn, 0) + n
     ids_k = ocr_engine(ocr, tok, OCR_PATHS[0][1], dev,
                        8).generate_batch_async(pages)
     ocr.use_kernels = False
@@ -1987,17 +2215,39 @@ def main() -> None:
                     f"decode launches a step, more than {2 * layers}")
     pages_big = torch.tensor(np.random.RandomState(SEED + 1).randint(
         0, 256, (MEGA_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
+    batched = {}
     for name, flags, _, opts in OCR_PATHS + (
             (OCR_PATHS[2][0], OCR_PATHS[2][1], None, dict(big=True)),):
         if opts.get("block_skip"):
             continue
         batch_pages = pages_big if opts.get("big") else pages
         t = time_ocr_path(ocr, tok, batch_pages, flags, dev)
+        batched.setdefault(name, t)
         print(f"timing {name} b{batch_pages.shape[0]}: prefill "
               f"{t['prefill_ms']:.1f} ms, decode {t['ms_per_step']:.3f} "
               f"ms/step, {t['img_per_s']:.3f} img/s ({OCR_TOKENS} new "
               f"tokens) on {card}", flush=True)
     del pages_big
+    # continuous batching (warm from phase 4), beside the batched int4 path
+    name, flags, kname, block_skip = OCR_STREAM_PATHS[0]
+    routed = copy.copy(ocr)
+    routed.block_skip = block_skip
+    res = run_stream(routed, tok, stream_pages, budgets, flags, dev)
+    check_stream(name, res, budgets, kname, block_skip,
+                 ocr.cfg.text.num_layers, ocr.cfg.text.vocab_size)
+    pre = res["prefill_ms"]
+    decode_ms = res["total_s"] * 1e3 - sum(pre)
+    print(f"timing {name} b{OCR_BATCH}: {STREAM_PAGES} pages, "
+          f"{int(budgets.sum())} tokens, {res['steps']} decode steps, "
+          f"{res['total_s']:.2f} s: {STREAM_PAGES / res['total_s']:.3f} "
+          f"img/s, {budgets.sum() / res['total_s']:.1f} tokens/s, decode "
+          f"{decode_ms / res['steps']:.3f} ms/step (the batched ocr_int4 "
+          f"path: {batched['ocr_int4']['ms_per_step']:.3f} ms/step in this "
+          f"run), first prefill {pre[0]:.1f} ms (b{OCR_BATCH}), refill "
+          f"prefill {np.mean(pre[1:]):.1f} ms a wave of up to "
+          f"{STREAM_REFILL} ({res['waves']} waves), "
+          f"{res['launches'][kname] / res['steps']:.1f} {kname} launches a "
+          f"step, on {card}", flush=True)
     t = time_pipeline(ocr, route_model(model, cfg, host, "int8 slab", "int4"),
                       mt, cfg, pages, dev)
     print(f"timing pipeline b{OCR_BATCH} (pages -> OCR int4, {OCR_TOKENS} "

@@ -4,6 +4,7 @@ card, for one of its three uses.
 
     python3 decode_bench.py [--kernel int4|i8|lattice] [--rounds 4]
         [--parent PATH] [--trace] [--splits N,...]
+    python3 decode_bench.py --tc-model
 
 --kernel picks the use: decode_int4 (`csrc/decode_int4.cu`, the core's
 Int4Pair policy; the default), decode_i8 (`csrc/decode_i8.cu`, its Int8
@@ -41,7 +42,11 @@ once (decode_cluster.cuh's max_clusters) beside the plan's model. --splits also 
 -DDECODE_CLUSTER_TRACE and prints, for each shape, where one launch's CTAs
 spend their time: the median and largest span of each interval between the
 kernel's ten stamps, the spread of the CTAs' entries and the first entry to
-the last exit.
+the last exit. --tc-model instead checks the plain versions' model of a
+tensor-core score sum (`ops.mxu_decode._scores`, `ops.tensor_core`) against
+the card: one warp's chain of mma.sync m16n8k16 over D = 64, the core's score
+product, on 4000 seeded tiles of 16 keys x 8 query rows, and prints how
+often the model, and a float32 product sum, give the card's sum exactly.
 
 The shapes, with seeded inputs of their own: chip_smoke.py phase 3's (rows
 4-6 of PERF.md: the MG greedy cross at b8, Kp=1792 (and Kp=1280, the int8
@@ -114,6 +119,94 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # n_live, out_bf16, out, stream
 HEAD_MAP_SIGNATURE = [_P] * 8 + [_I] * 11 + [_P, _P]
 LATTICE_SIGNATURE = [_P] * 7 + [_I] * 11 + [_P, _P]
+
+
+# --tc-model: keys [T, 16, D] times q [T, 8, D] -> [T, 16, 8] float32, by
+# one warp's mma.sync m16n8k16 (bf16, a float32 accumulator from zero), 16
+# dims a step, as the cluster core takes its scores
+TC_PROBE = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+__device__ uint32_t pair(const __nv_bfloat16* p, int i) {
+  __nv_bfloat162 v;
+  v.x = p[i];
+  v.y = p[i + 1];
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__global__ void tc_probe(const __nv_bfloat16* keys, const __nv_bfloat16* q,
+                         float* out, int D) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* a = keys + (size_t)blockIdx.x * 16 * D;
+  const __nv_bfloat16* b = q + (size_t)blockIdx.x * 8 * D;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < D; k += 16) {
+    const uint32_t ar[4] = {pair(a, g * D + k + 2 * t),
+                            pair(a, (g + 8) * D + k + 2 * t),
+                            pair(a, g * D + k + 2 * t + 8),
+                            pair(a, (g + 8) * D + k + 2 * t + 8)};
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(ar[0]), "r"(ar[1]), "r"(ar[2]), "r"(ar[3]),
+          "r"(pair(b, g * D + k + 2 * t)), "r"(pair(b, g * D + k + 2 * t + 8)));
+  }
+  float* o = out + (size_t)blockIdx.x * 128;
+  o[g * 8 + 2 * t] = c[0];
+  o[g * 8 + 2 * t + 1] = c[1];
+  o[(g + 8) * 8 + 2 * t] = c[2];
+  o[(g + 8) * 8 + 2 * t + 1] = c[3];
+}
+extern "C" int mg_tc_probe(const void* keys, const void* q, void* out,
+                           int tiles, int D) {
+  tc_probe<<<tiles, 32>>>((const __nv_bfloat16*)keys,
+                          (const __nv_bfloat16*)q, (float*)out, D);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def tc_model(dev) -> None:
+    """How often `mxu_decode._scores`'s model of the tensor-core score sum
+    gives the card's own, exactly: int8 and int4 key values with q at 0.5
+    scale (the scale of this script's inputs), and int8 keys with q spread
+    over 24 octaves."""
+    import torch
+
+    from markushgrapher_torch.ops import _build, mxu_decode, tensor_core
+
+    d = _build.BUILD_DIR / "decode_bench" / "tc_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tc_probe.cu").write_text(TC_PROBE)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(d / "lib.so"), str(d / "tc_probe.cu")], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(d / "lib.so")).mg_tc_probe
+    fn.argtypes, fn.restype = [_P] * 3 + [_I] * 2, _I
+    gen = torch.Generator().manual_seed(chip_smoke.SEED + 12)
+    tiles, dim = 4000, 64
+    for label, top, octaves in (("int8 keys, q at 0.5 scale", 128, 0),
+                                ("int4 keys, q at 0.5 scale", 8, 0),
+                                ("int8 keys, q over 24 octaves", 128, 24)):
+        keys = torch.randint(1 - top, top, (tiles, 16, dim), generator=gen)
+        q = torch.randn((tiles, 8, dim), generator=gen) * 0.5
+        if octaves:
+            q = q * torch.exp2(-torch.randint(0, octaves, q.shape,
+                                              generator=gen).float())
+        keys = keys.to(dev, torch.bfloat16)
+        q = q.to(dev, torch.bfloat16)
+        out = torch.empty((tiles, 16, 8), device=dev)
+        _build.check(fn(keys.data_ptr(), q.data_ptr(), out.data_ptr(), tiles,
+                        dim), "tc_probe")
+        model = mxu_decode._scores(q.float(), keys.float()[:, :, None].expand(
+            tiles, 16, 8, dim)).transpose(1, 2)
+        f32 = torch.einsum("tkd,trd->tkr", keys.float(), q.float())
+        print(f"tensor-core score sums, {label}: the plain model (TC_ALIGN "
+              f"{tensor_core.TC_ALIGN}) gives the card's in "
+              f"{float((model == out).float().mean()):.4%}, a float32 "
+              f"product sum in {float((f32 == out).float().mean()):.4%}",
+              flush=True)
 
 
 TRACE_CTAS, TRACE_POINTS = 4096, 10
@@ -344,10 +437,14 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--splits", default="")
+    ap.add_argument("--tc-model", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_bench: needs a CUDA device")
     print(chip_smoke.gpu_line(), flush=True)
+    if a.tc_model:
+        tc_model(torch.device("cuda"))
+        return
     _build.lib()
     fns, form, traced, occupancy = build(a.kernel, a.parent, a.trace)
     dev = torch.device("cuda")

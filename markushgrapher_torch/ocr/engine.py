@@ -1,22 +1,23 @@
-"""ChemicalOCR engine: batched OCR on the port (port of
-`markushgrapher_tpu.ocr.engine`, batched path).
+"""ChemicalOCR engine: batched and continuous-batching OCR on the port (port
+of `markushgrapher_tpu.ocr.engine`).
 
-Batched prefill, then greedy decode as a Python loop over steps against the
-per-layer rings (or, under `megastep`, one `ops.megastep` launch per step),
-then loc-grammar parsing into the `cells` column, and `predict_to_disk`'s
-DatasetDict save: the reference's stage-1 / stage-2 on-disk contract
-(`markushgrapher/ocr/chemical_ocr.py:396-478`).
+Batched: one prefill, then greedy decode as a Python loop over steps against
+the per-layer rings (or, under `megastep`, one `ops.megastep` launch per
+step). Continuous batching (`generate_stream` / `stream_retired`, and
+`predict` under `stream=True`): rows retire at EOS or at their image's token
+budget, and freed rows take the next images of the queue in refill waves,
+each row decoding at its own position (`ChemicalOCRModel.decode_step` with a
+vector step). Then loc-grammar parsing into the `cells` column, and
+`predict_to_disk`'s DatasetDict save: the reference's stage-1 / stage-2
+on-disk contract (`markushgrapher/ocr/chemical_ocr.py:396-478`).
 
 `OCREngineConfig` has every field of the JAX config. Not ported yet, and
-refused by name: continuous batching (`stream=True`, or `refill_batch` /
-`stream_inner` away from their defaults; `generate_stream` /
-`stream_retired`), int4 decode weights (`weight_bits=4`) and W8A8 decode
-dots (`act_quant=True`). `mega_block_s` picks the TPU kernel's ring block
-and changes nothing here (the megastep reads the ring in chunks that fit
-shared memory). The engine runs on the CUDA device
-unless the caller passes `device="cpu"`. It takes a built model, as the
-reference's does: valid-prefix ring reads are the model's flag
-(`ChemicalOCRModel(cfg, block_skip=True)`).
+refused by name: int4 decode weights (`weight_bits=4`) and W8A8 decode dots
+(`act_quant=True`). `mega_block_s` picks the TPU kernel's ring block and
+changes nothing here (the megastep reads the ring in chunks that fit shared
+memory). The engine runs on the CUDA device unless the caller passes
+`device="cpu"`. It takes a built model, as the reference's does: valid-prefix
+ring reads are the model's flag (`ChemicalOCRModel(cfg, block_skip=True)`).
 """
 
 from __future__ import annotations
@@ -52,16 +53,15 @@ class OCREngineConfig:
     act_quant: bool = False         # False only: W8A8 not ported
     megastep: bool = False          # whole-step decode kernel, int8 weights
     mega_block_s: int = 0           # the TPU kernel's ring block: no effect
-    stream: bool = False            # continuous batching: not ported yet
-    refill_batch: int = 8           # stream refill wave size (stream only)
-    stream_inner: int = 64          # stream steps per readback (stream only)
+    stream: bool = False            # continuous batching in predict()
+    refill_batch: int = 8           # stream refill wave size
+    stream_inner: int = 64          # stream decode steps per host readback
 
     def __post_init__(self):
-        if self.stream or (self.refill_batch, self.stream_inner) != (8, 64):
+        if self.stream and self.megastep:
             raise ValueError(
-                "OCREngineConfig: continuous batching (stream=True, "
-                "refill_batch, stream_inner) is not ported yet; use the "
-                "batched engine")
+                "OCREngineConfig: stream=True is incompatible with "
+                "megastep=True (stacked rings have no per-row positions)")
         if self.weight_bits != 8:
             raise ValueError(
                 f"OCREngineConfig: int4 decode weights (weight_bits="
@@ -191,15 +191,203 @@ class ChemicalOCR:
         """images: [B, H, W, 3] float in [0, 1] or uint8 -> decoded strings."""
         return self.decode_ids(self.generate_batch_async(images))
 
+    # -- continuous batching (retire at EOS or budget, refill) ----------------
+
+    def _stream_prefill(self, images, idxs: List[int]):
+        """Prefill of the images `idxs` of the queue: (per-layer rings of
+        len(idxs) rows, first tokens [len(idxs)], L0)."""
+        if isinstance(images, torch.Tensor):
+            pix = images[idxs].to(self.device)
+        else:
+            pix = torch.as_tensor(np.stack([np.asarray(images[i])
+                                            for i in idxs]),
+                                  device=self.device)
+        if pix.dtype == torch.uint8:
+            pix = ocr_from_uint8(pix)
+        cfg = self.cfg
+        logits, caches, prefix_len = self.model.prefill(
+            pix, self.prompt_ids[None].expand(len(idxs), -1),
+            cfg.max_new_tokens, quant_kv=cfg.quant_kv, int4=cfg.int4_kv)
+        return caches, logits[:, -1].argmax(dim=-1), prefix_len
+
+    def _stream_chunk(self, state: Dict, qw, prefix_len: int, steps: int,
+                      top: int) -> None:
+        """`steps` decode steps of every row at its own position, in place
+        (the reference's chunk body): the fed token is each row's (n-1)-th,
+        a finished row emits pad_id and keeps its n, a row finishes at EOS
+        or when n + 1 reaches its budget. `top` bounds the largest ring slot
+        at the first step (the host's block_skip bound)."""
+        cfg, model = self.cfg, self.model
+        rows = torch.arange(state["n"].shape[0], device=self.device)
+        for i in range(steps):
+            logits = model.decode_step(state["tok"], state["caches"],
+                                       state["n"] - 1, prefix_len, qw,
+                                       slot_bound=top + i)
+            fin, n = state["finished"], state["n"]
+            nxt = torch.where(fin, cfg.pad_id, logits[:, -1].argmax(dim=-1))
+            pos = n.clamp(0, cfg.max_new_tokens - 1)
+            state["out"][rows, pos] = torch.where(
+                fin, state["out"][rows, pos], nxt)
+            state["finished"] = fin | (nxt == cfg.eos_id) | (
+                n + 1 >= state["budget"])
+            state["n"] = torch.where(fin, n, n + 1)
+            state["tok"] = nxt[:, None]
+
+    def generate_stream(self, images, budgets=None, batch: int = 0,
+                        refill_batch: int = 8, inner: int = 64
+                        ) -> List[torch.Tensor]:
+        """Continuous-batching OCR over a queue of images: rows retire at
+        EOS or at their image's token budget and the next images refill the
+        freed rows, so a long page no longer holds the whole batch.
+
+        images: [N, H, W, 3] float in [0, 1] or uint8 (an array, a tensor
+        or a list of per-image arrays). budgets: optional [N] per-image
+        token budgets, clipped to [1, max_new_tokens]. Returns N
+        [max_new_tokens] id tensors (pad after the last token), in the
+        images' order; an image's ids do not depend on the batch, the
+        refill waves, `inner` or its row."""
+        results: List[Optional[torch.Tensor]] = [None] * len(images)
+        for i, ids in self.stream_retired(images, budgets, batch,
+                                          refill_batch, inner):
+            results[i] = ids
+        return results
+
+    @torch.no_grad()
+    def stream_retired(self, images, budgets=None, batch: int = 0,
+                       refill_batch: int = 8, inner: int = 64):
+        """Generator form of generate_stream: yields (image index, ids) as
+        each row retires, in retirement order, so a downstream stage can
+        start on an image while the other rows decode.
+
+        The state holds, per row of `batch` (default cfg.batch_size): the
+        rings, n (tokens generated), the fed token, finished, out [batch,
+        max_new_tokens] and the budget. A chunk runs up to `inner` decode
+        steps, then reads finished and n back once; it stops early only
+        where every row has reached its budget, which the host knows (EOS
+        may come earlier: the further steps leave a finished row as it is).
+        Freed rows wait until `refill_batch` of them are free, or until the
+        rest of the queue fits in them; a wave prefills only its images and
+        writes its rows' rings and state in place. A short queue's rows
+        with no image are born finished; an empty queue yields nothing."""
+        cfg = self.cfg
+        if cfg.megastep:
+            raise ValueError("stream_retired: megastep uses a stacked-ring "
+                             "layout without per-row positions; disable it")
+        n_imgs = len(images)
+        if n_imgs == 0:
+            return
+        batch = batch or cfg.batch_size
+        refill_batch = max(1, min(refill_batch, batch))
+        max_new = cfg.max_new_tokens
+        if budgets is None:
+            budgets = np.full(n_imgs, max_new, np.int64)
+        budgets = np.clip(np.asarray(budgets, np.int64), 1, max_new)
+        if budgets.shape != (n_imgs,):
+            raise ValueError(f"stream_retired: {budgets.shape[0]} budgets "
+                             f"for {n_imgs} images")
+        qw = self.model.quantize_weights() if cfg.quant_weights else None
+        dev = self.device
+
+        next_img = min(batch, n_imgs)
+        owners = list(range(next_img)) + [-1] * (batch - next_img)
+        caches, first, prefix_len = self._stream_prefill(
+            images, list(range(next_img)))
+        if next_img < batch:        # rows with no image: zero rings
+            caches = [{k: torch.cat([t, t.new_zeros(
+                (batch - next_img,) + t.shape[1:])]) for k, t in c.items()}
+                for c in caches]
+            first = torch.cat([first, first.new_full(
+                (batch - next_img,), cfg.pad_id)])
+        budget_h = np.ones(batch, np.int64)
+        budget_h[:next_img] = budgets[:next_img]
+        budget = torch.as_tensor(budget_h, device=dev)
+        out = torch.full((batch, max_new), cfg.pad_id, dtype=torch.long,
+                         device=dev)
+        out[:, 0] = first
+        state = {
+            "caches": caches, "out": out, "budget": budget,
+            "n": torch.ones(batch, dtype=torch.long, device=dev),
+            "tok": first[:, None],
+            "finished": (first == cfg.eos_id) | (budget <= 1)
+            | (torch.arange(batch, device=dev) >= next_img)}
+        n_h = np.ones(batch, np.int64)
+        free: List[int] = []
+        while True:
+            # every live row reaches its budget within `steps` steps
+            steps = min(inner, max([int(budget_h[r] - n_h[r])
+                                    for r in range(batch)
+                                    if owners[r] >= 0], default=0))
+            self._stream_chunk(state, qw, prefix_len, steps,
+                               prefix_len + int(n_h.max()) - 1)
+            fin_n = torch.stack([state["finished"].long(),
+                                 state["n"]]).cpu().numpy()
+            fin, n_h = fin_n[0].astype(bool), fin_n[1]
+            newly = [r for r in range(batch) if fin[r] and owners[r] >= 0]
+            if newly:
+                got = state["out"][torch.as_tensor(newly, device=dev)].cpu()
+                done = [(owners[r], ids) for r, ids in zip(newly, got)]
+                for r in newly:
+                    owners[r] = -1
+                yield from done
+                free += newly
+            while free and next_img < n_imgs and (
+                    len(free) >= refill_batch
+                    or n_imgs - next_img <= len(free)):
+                take = min(refill_batch, n_imgs - next_img)
+                rows, free = free[:take], free[take:]
+                idxs = list(range(next_img, next_img + take))
+                next_img += take
+                self._stream_swap(state, rows, idxs, images, budgets)
+                for r, i in zip(rows, idxs):
+                    owners[r] = i
+                    n_h[r] = 1
+                    budget_h[r] = budgets[i]
+            if all(o < 0 for o in owners) and next_img >= n_imgs:
+                break
+
+    def _stream_swap(self, state: Dict, rows: List[int], idxs: List[int],
+                     images, budgets) -> None:
+        """A refill wave: prefill the images `idxs` and write their rings
+        and state into `rows` in place (the reference's swap)."""
+        cfg = self.cfg
+        caches, first, _ = self._stream_prefill(images, idxs)
+        at = torch.as_tensor(rows, device=self.device)
+        for full, new in zip(state["caches"], caches):
+            for k, t in new.items():
+                full[k][at] = t
+        budget = torch.as_tensor(budgets[idxs], device=self.device)
+        state["out"][at] = cfg.pad_id
+        state["out"][at, 0] = first
+        state["n"][at] = 1
+        state["tok"][at] = first[:, None]
+        state["finished"][at] = (first == cfg.eos_id) | (budget <= 1)
+        state["budget"][at] = budget
+
     # -- dataset-level API (chemical_ocr.py predict:396-478) ----------------
 
     def predict(self, dataset, image_key: str = "page_image",
                 image_size: Optional[int] = None) -> List[List[Dict]]:
         """Run OCR over every sample of a list-like of dicts; returns the new
-        `cells` column (an empty dataset gives [])."""
+        `cells` column (an empty dataset gives []). Under `stream=True`
+        through `stream_retired`, else in batches of batch_size."""
         from markushgrapher_torch.data.dataset import resize_image
 
         size = image_size or self.model.cfg.vision.image_size
+        if self.cfg.stream:
+            # continuous batching (the reference's vllm default,
+            # chemical_ocr.py:242-287)
+            t0 = time.time()
+            imgs = [resize_image(dataset[i][image_key], size)
+                    for i in range(len(dataset))]
+            out: List[Optional[List[Dict]]] = [None] * len(imgs)
+            for i, ids in self.stream_retired(
+                    imgs, batch=self.cfg.batch_size,
+                    refill_batch=self.cfg.refill_batch,
+                    inner=self.cfg.stream_inner):
+                out[i] = cells_from_prediction(self.decode_ids(ids[None])[0])
+            logger.info("OCR (stream): %d images in %.1fs", len(imgs),
+                        time.time() - t0)
+            return out
         cells_out: List[List[Dict]] = []
         batch_imgs: List[np.ndarray] = []
         t0 = time.time()

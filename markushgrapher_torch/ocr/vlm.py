@@ -21,10 +21,20 @@ The JAX package repeats the scales to the query heads ([B, H, S]); the port's
 decode kernels take one scale row per kv head and group the query heads
 themselves, so the rings keep [B, G, S]. `block_skip` (the reference's flag
 and default) reads only the quantised rings' valid prefix, in blocks of 128
-keys (`ops.mxu_decode.valid_prefix_blocks`). The combined k||v int4 ring,
-the vector-step (per-row position) decode of continuous batching and W8A8 /
-int4 weights are not ported (ROADMAP). The whole-step decode
-(`decode_step_mega`) runs every layer in one launch of `ops.megastep`.
+keys (`ops.mxu_decode.valid_prefix_blocks`).
+
+`decode_step` takes the step as an int (every row at one slot) or as an
+int64 tensor [B] (continuous batching, `ocr.engine.ChemicalOCR.
+generate_stream`: each row at its own slot, per-row RoPE, a per-row scatter
+into each ring and a per-row kv mask [B, 1, 1, S], which the decode kernels
+take as their bias [B, 1, S]). Under `block_skip` a vector step reads the
+rings up to the 128-key block of the batch's largest slot (the reference's
+`_skip_kw`); each row's own mask zeroes what lies past its slot, so the
+result is the same. The caller gives that slot as a host integer
+(`slot_bound`, any upper bound), so a step reads nothing back from the
+device. The combined k||v int4 ring and W8A8 / int4 weights are not ported
+(ROADMAP). The whole-step decode (`decode_step_mega`) runs every layer in
+one launch of `ops.megastep`.
 """
 
 from __future__ import annotations
@@ -300,22 +310,27 @@ class LMLayer(nn.Module):
                * qlinear(h, qw["up_q"], qw["up_s"]))
         return qlinear(mid, qw["down_q"], qw["down_s"])
 
-    def decode_step(self, x, cache: Cache, rope, positions, slot: int,
-                    kv_mask, qw=None, use_kernels: bool = True,
-                    block_skip: bool = False) -> torch.Tensor:
-        """x [B, 1, D]; one token at ring slot `slot` (every row shares it);
-        kv_mask [1, 1, 1, S] float32 (0 up to the slot, float32's lowest
-        after). block_skip: a quantised ring is read up to the 128-key
-        block of the slot (the reference's `_skip_kw`). Writes this step's
-        K/V into the ring in place."""
+    def decode_step(self, x, cache: Cache, rope, positions, slot, kv_mask,
+                    qw=None, use_kernels: bool = True,
+                    skip: Optional[Dict] = None) -> torch.Tensor:
+        """x [B, 1, D]; one token at ring slot `slot`: an int (every row
+        shares it) or an int64 tensor [B] (each row its own); kv_mask
+        [1 or B, 1, 1, S] float32 (0 up to the row's slot, float32's lowest
+        after). skip: the valid-prefix options of the quantised rings' reads
+        (`valid_prefix_blocks`), or None. Writes this step's K/V into the
+        ring in place, at each row's slot."""
         h = self.ln_attn(x)
         q, k_new, v_new = self._qkv_decode(h, qw)
         q = apply_rope(q, rope, positions)
         k_new = apply_rope(k_new, rope, positions)
         b = x.shape[0]
+        # values [B, S, ...] at key axis 1, scales [B, G, S] at key axis 2
+        at = ((slice(None), slot) if isinstance(slot, int) else
+              (torch.arange(b, device=x.device), slot))
+        at_s = (at[0], slice(None), at[1])
         if "k" in cache:                                  # float ring
-            cache["k"][:, slot] = k_new[:, 0]
-            cache["v"][:, slot] = v_new[:, 0]
+            cache["k"][at] = k_new[:, 0]
+            cache["v"][at] = v_new[:, 0]
             out = self._attend(q, cache["k"], cache["v"], kv_mask)
         else:
             int4 = "k_q4" in cache
@@ -324,23 +339,21 @@ class LMLayer(nn.Module):
             for kind, t in (("k", k_new), ("v", v_new)):
                 tq, ts = quant(t)                         # [B,1,G,D], [B,1,G]
                 tq = tq.reshape(b, -1)
-                cache[kind + vals][:, slot] = (mxu_decode.pack_int4(tq)
-                                               if int4 else tq)
+                cache[kind + vals][at] = (mxu_decode.pack_int4(tq)
+                                          if int4 else tq)
                 ring_s = cache[kind + scales]
-                ring_s[:, :, slot] = ts[:, 0].to(ring_s.dtype)
+                ring_s[at_s] = ts[:, 0].to(ring_s.dtype)
             if int4:
                 attend = (mxu_decode.cross_decode_mxu_int4 if use_kernels
                           else mxu_decode.plain_int4)
             else:
                 attend = (mxu_decode.cross_decode_mxu if use_kernels
                           else mxu_decode.plain_int8)
-            ring_len = cache["k" + vals].shape[1]
-            kw = (mxu_decode.valid_prefix_blocks(ring_len, slot, 128)
-                  if block_skip else {})
             # the grouped map (query head r reads kv block r // (H / G))
             out = attend(q[:, 0] * self.d ** -0.5, cache["k" + vals],
                          cache["k" + scales], cache["v" + vals],
-                         cache["v" + scales], kv_mask[:, 0], **kw)[:, None]
+                         cache["v" + scales], kv_mask[:, 0],
+                         **(skip or {}))[:, None]
         x = x + self._o_proj(out, qw)
         return x + self._mlp_decode(self.ln_mlp(x), qw)
 
@@ -473,26 +486,43 @@ class ChemicalOCRModel(nn.Module):
         return F.linear(xb, head["w"]) * head["s"]
 
     @torch.no_grad()
-    def decode_step(self, token_ids, caches: List[Cache], step: int,
-                    prefix_len: int, qw: Optional[Dict] = None
-                    ) -> torch.Tensor:
+    def decode_step(self, token_ids, caches: List[Cache], step,
+                    prefix_len: int, qw: Optional[Dict] = None,
+                    slot_bound: Optional[int] = None) -> torch.Tensor:
         """One token for every row at ring slot prefix_len + step (step
-        counts from 0 after the prefill). Returns float32 logits [B, 1, V]."""
+        counts from 0 after the prefill): `step` an int (every row shares
+        the slot) or an int64 tensor [B] (each row its own; module
+        docstring). slot_bound: a host upper bound on the largest slot of a
+        vector step, up to whose block `block_skip` reads the rings (needed
+        there, so that no step waits for the device). Returns float32
+        logits [B, 1, V]."""
         b = token_ids.shape[0]
-        slot = prefix_len + step
         dev = token_ids.device
-        positions = torch.full((b, 1), slot, dtype=torch.long, device=dev)
-        x = self.embed[token_ids.long()].to(self.dtype)
         c0 = caches[0]
         total = next(c0[k] for k in ("k", "k_q", "k_q4") if k in c0).shape[1]
         neg = torch.finfo(torch.float32).min
-        kv_mask = torch.where(torch.arange(total, device=dev) <= slot, 0.0,
-                              neg)[None, None, None]
+        keys = torch.arange(total, device=dev)
+        if isinstance(step, torch.Tensor) and step.dim() == 1:
+            if self.block_skip and slot_bound is None:
+                raise ValueError("decode_step: a vector step under "
+                                 "block_skip needs slot_bound")
+            slot = prefix_len + step.to(device=dev, dtype=torch.long)
+            positions = slot[:, None]
+            kv_mask = torch.where(keys[None] <= slot[:, None], 0.0,
+                                  neg)[:, None, None]
+            top = slot_bound
+        else:
+            slot = top = prefix_len + int(step)
+            positions = torch.full((b, 1), slot, dtype=torch.long,
+                                   device=dev)
+            kv_mask = torch.where(keys <= slot, 0.0, neg)[None, None, None]
+        skip = (mxu_decode.valid_prefix_blocks(total, top, 128)
+                if self.block_skip else None)
+        x = self.embed[token_ids.long()].to(self.dtype)
         layer_qw = qw["layers"] if qw is not None else [None] * len(caches)
         for layer, cache, lqw in zip(self.layers(), caches, layer_qw):
             x = layer.decode_step(x, cache, self.rope(), positions, slot,
-                                  kv_mask, lqw, self.use_kernels,
-                                  self.block_skip)
+                                  kv_mask, lqw, self.use_kernels, skip)
         x = self.final_ln(x)
         if qw is not None:
             return self._head(x, qw["lm_head"])

@@ -55,6 +55,7 @@ from typing import Dict, Sequence
 import torch
 
 from markushgrapher_torch.ops import _build
+from markushgrapher_torch.ops.tensor_core import tc_steps
 
 _THREADS = 256
 
@@ -114,14 +115,6 @@ def _lanes(v: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def _rz32(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32, rounded toward zero, back in float64."""
-    f = x.to(torch.float32)
-    over = f.to(torch.float64).abs() > x.abs()
-    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
-                       f).to(torch.float64)
-
-
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """bf16(x rsqrt(mean x^2 + eps) w); the sum of squares as the kernel
     takes it: per 16-column tile over 16 lanes, then the tiles over a
@@ -159,14 +152,6 @@ def _gemv_steps(k: int) -> torch.Tensor:
     return idx
 
 
-def _tc_steps(acc: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
-    """Add exact step sums [R, ...] into a float32 accumulator, each
-    rounded toward zero, as tensor-core steps do."""
-    for r in range(sums.shape[0]):
-        acc = _rz32(acc + sums[r])
-    return acc
-
-
 def _tc_dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """h [B, K] (bf16 values) . int8 w [N, K]^T as the kernel's GEMV sums
     it: each warp's tensor-core steps (`_gemv_steps`), then the warps'
@@ -175,7 +160,7 @@ def _tc_dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     hp = torch.nn.functional.pad(h.to(torch.float64), (0, 1))[:, idx]
     wp = torch.nn.functional.pad(w.to(torch.float64), (0, 1))[:, idx]
     sums = torch.einsum("brwk,nrwk->rbnw", hp, wp)  # exact in float64
-    part = _tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
+    part = tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
     return _lanes(part, 1)[..., 0]
 
 
@@ -213,7 +198,7 @@ def _ring_attention(qs, kr, vr, ks, vs, kdq, vdq):
             "bhd,bkhd->bhk", qs[..., d0:d0 + 16].to(torch.float64),
             kr[..., d0:d0 + 16].to(torch.float64))
             for d0 in range(0, d, 16)])
-        c = _tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
+        c = tc_steps(torch.zeros_like(sums[0]), sums).to(torch.float32)
     else:
         # on the CUDA cores: fma over d in order (the products are exact)
         c = _lanes(qs[:, :, None] * kr.transpose(1, 2), 1)[..., 0]

@@ -28,7 +28,9 @@ or [rows, G, K] (one row per kv column block); bias [B or 1, 1 or R, K] f32.
 Query row r attends kv column block head_map[r] (default grouped,
 r // (R / G)). Returns [B, R, D] in q's dtype, with the TPU kernels'
 rounding points: q in bf16; s = dot * ks + bias in f32; p * vs in bf16;
-the output rounded to bf16. No 1/sqrt(d) scaling (T5). Options:
+the output rounded to bf16. No 1/sqrt(d) scaling (T5). The plain versions
+sum the dot as the kernel does where it takes it on the tensor cores (head
+dim 32 or 64, `_scores`), so that both round p * vs alike. Options:
   - block_k: the softmax runs online over blocks of block_k keys, as the
     TPU kernel's K grid does: running max m, l and acc in f32, p = exp(s -
     m) against the running max after each block, p * vs rounded to bf16,
@@ -55,6 +57,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from markushgrapher_torch.ops import _build
+from markushgrapher_torch.ops.tensor_core import tc_step
 
 _THREADS = 256
 # the cluster core's launch (csrc/decode_cluster.cuh): a cluster of at most
@@ -182,6 +185,24 @@ def _keys(t: torch.Tensor, row_map, block_k: int, live: int,
     return t.transpose(1, 2)[phys, keys].transpose(1, 2)
 
 
+def _scores(qb: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q . k [B, R, n] float32 of qb [B, R, D] (bf16 values) and k
+    [B, n, R, D] (integer values). At head dim 32 or 64, where the kernel
+    takes its scores on the tensor cores, summed as it sums them: in steps
+    of 16 dims (`ops.tensor_core.tc_step`), so that the plain version's
+    p = exp(s - m), and so bf16(p * vs), are the kernel's (a one-ulp move
+    of s flips a bf16(p * vs) now and then, and where the output nearly
+    cancels, that flip alone can leave TOL). Else a float32 product sum."""
+    if not _int4_tensor_cores(qb.shape[-1]):
+        return torch.einsum("brd,bkrd->brk", qb, k)
+    acc = torch.zeros(k.shape[:3], dtype=torch.float64, device=k.device)
+    for d0 in range(0, qb.shape[-1], 16):
+        prods = (qb[:, None, :, d0:d0 + 16].to(torch.float64)
+                 * k[..., d0:d0 + 16].to(torch.float64))
+        acc = tc_step(torch.cat([acc[..., None], prods], dim=-1))
+    return acc.to(torch.float32).transpose(1, 2)
+
+
 def _attend(q, k, v, ks, vs, bias, head_map, block_k: int):
     """Shared plain body over the live keys: k / v float32 [B, n, G, D]
     values, ks / vs [B, R or G, n], bias [B or 1, 1 or R, n]; the online
@@ -192,7 +213,7 @@ def _attend(q, k, v, ks, vs, bias, head_map, block_k: int):
     if ks.shape[1] != rows:                                  # per kv block
         ks, vs = ks[:, hm], vs[:, hm]
     qb = q.to(torch.bfloat16).to(torch.float32)
-    s = torch.einsum("brd,bkrd->brk", qb, k) * ks.to(torch.float32)
+    s = _scores(qb, k) * ks.to(torch.float32)
     s = s + bias.to(torch.float32)
     n = s.shape[-1]
     m = torch.full(s.shape[:2] + (1,), NEG_INF, dtype=torch.float32,

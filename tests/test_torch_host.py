@@ -177,3 +177,66 @@ def test_bucketing_copy_matches_jax(n_buckets, round_to, margin, cap):
             j_b.bucket_pack_lengths(*bad)
         with pytest.raises(ValueError):
             t_b.bucket_pack_lengths(*bad)
+
+
+@pytest.fixture()
+def jax_scripts():
+    """The JAX package's scripts/ directory, importable for the test."""
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    sys.path.insert(0, path)
+    yield
+    sys.path.remove(path)
+
+
+def test_image_dir_dataset_copy_matches_jax(jax_scripts, tmp_path):
+    """scripts/image_dir_to_hf_dataset.py: the same canvas for an odd-sized
+    page, and the same saved dataset for a directory of pages."""
+    pytest.importorskip("datasets")
+    from PIL import Image
+
+    import image_dir_to_hf_dataset as j_pages
+    from markushgrapher_torch.scripts import image_dir_to_hf_dataset as t_pages
+
+    rng = np.random.RandomState(5)
+    (tmp_path / "imgs").mkdir()
+    for i, (h, w) in enumerate([(40, 90), (70, 30), (64, 64)]):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).save(
+            tmp_path / "imgs" / f"p{i}.png")
+    page = Image.open(tmp_path / "imgs" / "p0.png")
+    np.testing.assert_array_equal(
+        np.asarray(t_pages.square_with_white_borders_resize(page, 96, 0.7)),
+        np.asarray(j_pages.square_with_white_borders_resize(page, 96, 0.7)))
+    outs = {}
+    for name, mod in (("jax", j_pages), ("torch", t_pages)):
+        mod.generate_hf_dataset(str(tmp_path / "imgs"), str(tmp_path / name),
+                                canvas_size=64)
+        import datasets as hfds
+
+        outs[name] = hfds.load_from_disk(str(tmp_path / name))["test"]
+    assert outs["torch"].column_names == outs["jax"].column_names
+    assert outs["torch"].to_list() == outs["jax"].to_list()
+
+
+def test_prepare_dataset_copy_matches_jax(jax_scripts):
+    """scripts/prepare_hf_dataset.py: the same normalised columns (ids,
+    cells, cxsmiles_opt, synthesised annotations) for rows that lack them."""
+    hfds = pytest.importorskip("datasets")
+
+    import prepare_hf_dataset as j_prep
+    from markushgrapher_torch.scripts import prepare_hf_dataset as t_prep
+
+    rows = [{"id": None, "cells": None, "cxsmiles": "CC*", "cxsmiles_opt": "",
+             "annotation": ""},
+            {"id": 7, "cells": [], "cxsmiles": "", "cxsmiles_opt": "C1CC1",
+             "annotation": "<markush>x</markush>"},
+            {"id": 8, "cells": None, "cxsmiles": "", "cxsmiles_opt": "",
+             "annotation": ""}]
+    ds = hfds.Dataset.from_list(rows)
+    want = j_prep.normalize_dataset(ds)
+    got = t_prep.normalize_dataset(ds)
+    assert list(got) == list(want) == ["test"]
+    assert got["test"].to_list() == want["test"].to_list()

@@ -63,6 +63,7 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.ocr.vlm",
                  "markushgrapher_torch.ocr.engine",
                  "markushgrapher_torch.ops.megastep",
+                 "markushgrapher_torch.ops.tensor_core",
                  "markushgrapher_torch.ops.preprocess",
                  "markushgrapher_torch.train.trainer",
                  "markushgrapher_torch.train.optim",
@@ -71,7 +72,11 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.train.tf_metrics",
                  "markushgrapher_torch.train_main",
                  "markushgrapher_torch.data.augment",
-                 "markushgrapher_torch.utils.tracker"):
+                 "markushgrapher_torch.utils.tracker",
+                 "markushgrapher_torch.scripts.apply_ocr",
+                 "markushgrapher_torch.scripts.run_inference",
+                 "markushgrapher_torch.scripts.image_dir_to_hf_dataset",
+                 "markushgrapher_torch.scripts.prepare_hf_dataset"):
         assert name in out["modules"]
 
 

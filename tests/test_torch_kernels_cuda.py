@@ -386,13 +386,33 @@ def _int4_case(dev, case, int8=False):
         args = call(16, 80, 16, 64, 1792)
         args[-1][:, :, 1692:] = -1e9
         return args, dict(head_map=tuple(range(16)) * 5)
+    if case.startswith("stream_rows"):  # continuous batching's OCR ring
+        # rows at their own positions (a per-row mask [B, 1, S]): long rows
+        # beside rows refilled far below the batch's largest slot, whose
+        # keys past their own slot hold another image's leftovers
+        args = call(8, 15, 5, 64, 512)
+        slots = torch.tensor([300, 105, 290, 103, 120, 299, 110, 200],
+                             device=dev)
+        keys = torch.arange(512, device=dev)
+        args[-1][:] = torch.where(keys <= slots[:, None, None], 0.0,
+                                  torch.finfo(torch.float32).min)
+        return args, (mxu_decode.valid_prefix_blocks(512, 300, 128)
+                      if case == "stream_rows_live" else {})
+    if case == "ocr_ring_bench":        # decode_bench.py's seeded OCR ring
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        import decode_bench
+
+        return {label: (args, kw) for label, args, kw in decode_bench.shapes(
+            dev, "i8")}["OCR ring B=8 R=15 G=5 S=640"]
     raise KeyError(case)
 
 
 INT4_CASES = ("head_map_any", "beam_per_row_scales", "bias_1RK", "bias_B1K",
               "masked_rows", "live_below_block", "live_ragged",
               "live_ragged_blocks", "b1_g1", "row_map_one_row", "out_f32",
-              "out_bf16", "rows_in_three_slots", "head_dim_256")
+              "out_bf16", "rows_in_three_slots", "head_dim_256",
+              "stream_rows", "stream_rows_live")
 
 
 @pytest.mark.parametrize("case", INT4_CASES)
@@ -403,7 +423,10 @@ def test_decode_int4_cases(dev, case):
     below one block or no multiple of the split, B = 1 with G = 1, a row map
     onto one physical row, float32 and bf16 output, more rows on a byte
     block than one CTA serves (slots of 10, 10 and 4 rows, the second
-    reading both nibbles), head dim 256."""
+    reading both nibbles), head dim 256, and the OCR ring of continuous
+    batching (rows at their own positions under a per-row mask, refilled
+    rows far below the largest slot, with and without live keys at its
+    block)."""
     args, kw = _int4_case(dev, case)
     _build.reset_launches()
     got = mxu_decode.cross_decode_mxu_int4(*args, **kw)
@@ -415,7 +438,7 @@ def test_decode_int4_cases(dev, case):
 
 
 I8_CASES = INT4_CASES + ("small_heads", "head_dim_128", "ocr_gqa",
-                         "beam_cross_b16")
+                         "beam_cross_b16", "ocr_ring_bench")
 
 
 @pytest.mark.parametrize("case", I8_CASES)
@@ -424,8 +447,11 @@ def test_decode_i8_cases(dev, case):
     in one launch at each of test_decode_int4_cases' options and split
     edges, over the full int8 range with f32 scales (with int8 one head a
     slot: the 24 rows over 2 heads take slots of 10 and 2 rows each), and
-    at head dims 8 and 128 (the CUDA cores), the OCR GQA and the beam cross
-    at b16."""
+    at head dims 8 and 128 (the CUDA cores), the OCR GQA, the beam cross
+    at b16 and decode_bench.py's seeded OCR ring (B=8, 15 rows over 5 kv
+    heads, S=640, position 503, full-range int8, q at 0.5 scale and a
+    random bias, where a one-ulp move of a score used to flip a bf16(p *
+    vs) that decided two outputs)."""
     args, kw = _int4_case(dev, case, int8=True)
     _build.reset_launches()
     got = mxu_decode.cross_decode_mxu(*args, **kw)

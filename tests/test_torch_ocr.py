@@ -199,17 +199,19 @@ def test_engine_config_refusals_match_jax(kw):
 
 
 def test_engine_config_refuses_unported():
-    """Continuous batching raises until it is ported, and so do the JAX
-    config's int4 / W8A8 decode-weight values, each naming its feature."""
-    with pytest.raises(ValueError, match="continuous batching"):
-        t_eng.OCREngineConfig(stream=True)
+    """The JAX config's int4 / W8A8 decode-weight values raise, each naming
+    its feature; continuous batching (stream, refill_batch, stream_inner)
+    builds as in JAX."""
     for key, value, feature in (("weight_bits", 4, "int4 decode weights"),
-                                ("act_quant", True, "W8A8"),
-                                ("refill_batch", 16, "continuous batching"),
-                                ("stream_inner", 8, "continuous batching")):
+                                ("act_quant", True, "W8A8")):
         j_eng.build_ocr_configs({key: value})
         with pytest.raises(ValueError, match=feature):
             t_eng.build_ocr_configs({key: value})
+    for key, value in (("stream", True), ("refill_batch", 16),
+                       ("stream_inner", 8)):
+        assert getattr(t_eng.build_ocr_configs({key: value})[1], key) \
+            == getattr(j_eng.build_ocr_configs({key: value})[1], key) \
+            == value
 
 
 def test_engine_config_takes_every_jax_field():
