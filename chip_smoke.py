@@ -16,8 +16,9 @@ prints no result):
    forwards and the two float-bias backward kernels), of the OCR
    megastep (one instantiation per batch tiling), of the decode cluster
    core under both element policies, int4 and int8 (one instantiation per
-   count of query rows a CTA serves), of bias_build_i8 and of
-   normalize_u8;
+   count of query rows a CTA serves), of bias_build_i8, of normalize_u8
+   and of wq_linear (three weight forms x 1-8 row tiles a pass, and the
+   W8A8 row quantiser);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the stated tolerance, timed
    against it, beside its bound (bytes over 3.35 TB/s or operations over
@@ -60,7 +61,13 @@ prints no result):
    the OCR page size) into bf16 and float32, and [48, ...] into bf16, bit
    for bit, timed over enough page batches in turn that each call reads
    its pages from HBM. No PyTorch call reads row-mapped packed int4 / scaled int8 K/V
-   or normalises uint8 in one call: their library time is none;
+   or normalises uint8 in one call: their library time is none.
+   wq_linear (the quantised decode projections) in its three forms, int8
+   and int4 weights and W8A8 (bit for bit), at every MG and OCR projection
+   shape (WQ_SHAPES) and 8, 48 and 80 rows, over weight copies in turn
+   past the L2, beside F.linear over the weights dequantised beforehand
+   (W8A8: torch._int_mm on the same codes) and, for int8, the port's
+   projection before this kernel;
 4. paths: the flagship 831M MarkushGrapherConfig() with seeded random bf16
    weights, served through `Evaluator.generate_batch` at batch 8 with eos
    never firing, along eleven paths (PATHS): over the int8 slab encoder,
@@ -73,13 +80,17 @@ prints no result):
    count), 128 steps each; beam-5 int4 over copy-on-write rings of four
    128-position segments (`self_seg=128`) and with the lattice
    (`lattice=True`), 512 steps each; beam-5 int8 over segments of 128, 256
-   steps; greedy int4 under `block_skip`, 512 steps. The packed encoder's
+   steps; greedy int4 under `block_skip`, 512 steps (all but predict.yaml's
+   with int8 decode weights through wq_linear); then greedy int4 with int4
+   weights and with W8A8 dots (WQ_PATHS, 128 steps) through
+   `greedy_generate`, as JAX's bench.py serves them. The packed encoder's
    states are held to the unpacked ones at the valid positions, both on the
    plain path in float32. Then OCRConfig() (seeded random bf16 weights)
    through `ChemicalOCR.generate_batch` on seeded uint8 pages at batch 8,
-   eos never firing, along four paths: int4 KV and int8 KV (128 new
-   tokens), the megastep (int8 KV, one launch per step, 512), and int4 KV
-   under `block_skip` (128); then through `ChemicalOCR.stream_retired`
+   eos never firing, along six paths: int4 KV and int8 KV (128 new
+   tokens), the megastep (int8 KV, one launch per step, 512), int4 KV
+   under `block_skip` (128), and int4 KV with int4 weights and with W8A8
+   dots (128); then through `ChemicalOCR.stream_retired`
    (continuous batching) along two (OCR_STREAM_PATHS: int4 KV under
    `block_skip`, int8 KV), 16 seeded pages with seeded lognormal budgets
    (median 64, sigma 1, clipped to [16, 256], every 8th page at 256), 8
@@ -88,14 +99,14 @@ prints no result):
    bias and (under block_skip) live keys below the ring's length in the
    decode calls, and the kernel calls of the first 8 steps and of the 8
    after the first refill wave held to their plain versions. For each
-   path: the launch counts of every kernel
-   (every count set to 0 just before the path, read just after), the forms
-   of the decode calls (through a row map, up to a valid prefix, the
-   lattice) that the path's options must show, and every kernel call of
-   the encode (MG) and of the first 8 decode steps held to its plain
-   version on the same inputs (the megastep one layer at a time and as a
-   whole step). For the int4 greedy path also the end-to-end difference
-   from the plain path beside a half-ulp-nudge control; for every path a
+   path: the launch counts of every kernel, wq_linear's one a projection
+   a step (every count set to 0 just before the path, read just after),
+   the forms of the decode calls (through a row map, up to a valid
+   prefix, the lattice) that the path's options must show, and every
+   kernel call of the encode (MG) and of the first 8 decode steps held to
+   its plain version on the same inputs (the megastep one layer at a time
+   and as a whole step; each wq_linear call, W8A8 bit for bit). For the
+   int4 greedy path also the end-to-end difference from the plain path beside a half-ulp-nudge control; for every path a
    few rows decoded to strings. Then the OCR pages through
    `ops.preprocess.preprocess_patchify` into MG's VTL patch vectors (one
    normalize_u8 launch), held to its reference bit for bit;
@@ -105,11 +116,14 @@ prints no result):
    batch 8 and 48, beam-5 (int4) over one ring segment, segments of 128
    and the lattice at batch 8, int8 greedy at batch 48 (all over the
    int8 slab), and predict.yaml's beam-5 over the bf16 slab and bf16 KV at
-   batch 8; the decode kernels launched per step of each of these runs,
+   batch 8; greedy int4 with int8 weights, int4 weights, W8A8 and int8
+   weights again, in turns, over 128 steps at batch 8;
+   the decode kernels launched per step of each of these runs,
    from the launch counters (int4 greedy at batch 8: at most one per
    attention call, 48); OCR prefill ms, ms/step and img/s of the int4, int8 and
    megastep paths at batch 8 and of the megastep at batch 48, 512 new
-   tokens; the int4 stream (warm): ms per decode step beside the batched
+   tokens, and of int4 KV with int8 weights, int4 weights and W8A8 at
+   128; the int4 stream (warm): ms per decode step beside the batched
    int4 path's, img/s, tokens/s, the first and the refill prefills' ms and
    decode launches a step; and one
    pipeline run: uint8 pages -> OCR (int4 KV) -> loc-grammar cells (seeded
@@ -172,6 +186,11 @@ KERNELS = {
                           "markushgrapher_tpu/ops/mxu_decode.py:666"),
     "normalize_u8": ("markushgrapher_torch/csrc/normalize_u8.cu",
                      "markushgrapher_tpu/ops/preprocess.py:33"),
+    # no Pallas counterpart: the JAX package leaves the quantised decode
+    # products to XLA, the fused convert + dot of `_deq` (t5.py:100) and the
+    # s8 dot of `_dot8` (t5.py:117)
+    "wq_linear": ("markushgrapher_torch/csrc/wq_linear.cu",
+                  "markushgrapher_tpu/models/t5.py:100"),
 }
 # the decode attention kernels, whose calls inside the model are checked for
 # the first CHECKED_STEPS decode steps
@@ -193,10 +212,14 @@ DECODE_SYMBOLS = ("decode_cluster_kernel",)
 # rows) and the image front end (warp tiles / bytes, float32 / bf16)
 ELEMENTWISE_SYMBOLS = ("bias_build_table", "bias_build_i8_kernel",
                        "normalize_u8_")
+# wq_linear's instantiations and its W8A8 row quantiser
+WQ_SYMBOLS = ("wq_linear_",)
 # the card's published peaks (H100 SXM, dense, 700 W): HBM bytes/s and bf16
 # tensor-core FLOP/s; a kernel's bound is the larger of its bytes and its
 # operations over these
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+# and its dense int8 tensor rate, operations a second
+PEAK_INT8_OPS = 1979e12
 # its L2 (H100 SXM: 50 MB)
 L2_BYTES = 50 * 2 ** 20
 # the CUDA cores (H100 SXM, 700 W): 67 TFLOP/s FP32 is 128 lanes a clock on
@@ -221,6 +244,11 @@ REL_OPS, REL_LOADS = 16, 2.5
 #    a one-ulp flip of one weight can move the output by a little more; over
 #    blocks of keys they also rescale by exp(m_j - m_last) where the plain
 #    version multiplies the running factors, a float32 difference.
+#  - wq_linear's int8 / int4 forms: both versions sum the exact products in
+#    float32 (in another order), round the sum to bf16, scale it in float32
+#    and round again: the two roundings can each land a bf16 ulp apart, two
+#    ulps in all (2 * 2^-7 relative). Its W8A8 form sums integers exactly
+#    and is held bit for bit, here and inside the model.
 #  - ocr_megastep, one layer at a time on the same bf16 input: the output is
 #    x + attention + MLP rounded to bf16 once, so two output ulps (2 * 2^-7
 #    relative). The kernel sums its GEMVs in another order, so a new K/V
@@ -238,7 +266,8 @@ REL_OPS, REL_LOADS = 16, 2.5
 TOL = {"flash_i8": (1e-3, 1.6e-2), "decode_int4": (2e-3, 2e-2),
        "decode_i8": (2e-3, 2e-2), "lattice_self_int4": (2e-3, 2e-2),
        "ocr_megastep": (8e-3, 1.6e-2),
-       "flash_bias": (1e-3, 1.6e-2), "flash_relbias": (1e-3, 1.6e-2)}
+       "flash_bias": (1e-3, 1.6e-2), "flash_relbias": (1e-3, 1.6e-2),
+       "wq_linear": (1e-3, 1.6e-2)}
 WHOLE_STEP_REL = 2e-2
 # flash_bias also returns the float32 log-sum-exp of each row, summed in
 # float32 by both versions: |kernel - plain| <= 1e-4 + 1e-5 * |plain|.
@@ -272,6 +301,13 @@ PATHS = (("greedy_int4", "int8 slab", "int4", 1, 512, {}),
           dict(self_seg=128)),
          ("greedy_int4_block_skip", "int8 slab", "int4", 1, 512,
           dict(block_skip=True)))
+# phase 4's greedy paths under int4 KV over the int8 slab through
+# greedy_generate, as JAX's bench.py serves the decode-weight modes (its
+# BENCH_W_INT4 / BENCH_W_ACT8): (name, generate's weight flags), WQ_STEPS
+# steps, each also timed in phase 5 beside int8 weights
+WQ_PATHS = (("greedy_int4_w4", dict(weight_bits=4)),
+            ("greedy_int4_w8a8", dict(act_quant=True)))
+WQ_STEPS = 128
 # the kernels one encode launches along each route
 ROUTE_KERNELS = {"int8 slab": ("bias_build_i8", "flash_i8"),
                  "bf16 slab": ("flash_bias",),
@@ -285,8 +321,9 @@ CHECKED_STEPS = 8
 # copy-on-write ring segment of the kernel checks (phase 3)
 SEG = 128
 # the OCR paths: batch, new tokens, and (name, OCREngineConfig flags, the
-# kernel each decode step launches, options: the model's block_skip and the
-# path's new tokens, default OCR_TOKENS)
+# kernel each decode step launches, options: the model's block_skip, the
+# path's new tokens, default OCR_TOKENS, and the new tokens of its phase-5
+# timing, default OCR_TOKENS)
 OCR_BATCH, OCR_TOKENS = 8, 512
 # the megastep's large-batch case: phase 3's check and phase 5's timing
 MEGA_BATCH = 48
@@ -299,7 +336,13 @@ OCR_PATHS = (
      "ocr_megastep", {}),
     ("ocr_int4_block_skip",
      dict(quant_kv=True, int4_kv=True, quant_weights=True), "decode_int4",
-     dict(block_skip=True, tokens=128)))
+     dict(block_skip=True, tokens=128)),
+    ("ocr_int4_w4", dict(quant_kv=True, int4_kv=True, quant_weights=True,
+                         weight_bits=4), "decode_int4",
+     dict(tokens=128, timed=128)),
+    ("ocr_int4_w8a8", dict(quant_kv=True, int4_kv=True, quant_weights=True,
+                           act_quant=True), "decode_int4",
+     dict(tokens=128, timed=128)))
 # continuous batching's OCR paths (phase 4; the first also timed in phase
 # 5): STREAM_PAGES seeded pages through OCR_BATCH rows, at most STREAM_TOKENS
 # new tokens, refill waves of STREAM_REFILL rows, STREAM_INNER steps a chunk,
@@ -404,10 +447,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, peak: float = PEAK_FLOPS) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    operations over the bf16 tensor rate, whichever is larger."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    operations over the tensor rate (bf16 unless `peak` says otherwise),
+    whichever is larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES, flops / peak
     return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -729,6 +773,100 @@ def check_kernels(dev, pack: int) -> dict:
         out["normalize_u8"] = res
         del pages, got, copies
     return out
+
+
+# wq_linear's shapes: (label, K, N) of each decode projection of
+# MarkushGrapherConfig() (d_model 1024, 16 heads of 64, d_ff 4096; the
+# cross q and both o projections share a shape) and OCRConfig() (d_model
+# 960, 15 + 2 x 5 heads of 64, d_ff 2560, gate and up stacked), at the rows
+# of greedy b8 and b48 and of beam-5 b16
+WQ_SHAPES = (("MG qkv", 1024, 3072), ("MG o", 1024, 1024),
+             ("MG wi", 1024, 4096), ("MG wo", 4096, 1024),
+             ("OCR qkv", 960, 1600), ("OCR o", 960, 960),
+             ("OCR gate+up", 960, 5120), ("OCR down", 2560, 960))
+WQ_ROWS = (8, 48, 80)
+# (bits, act) of each weight form
+WQ_FORMS = {"int8": (8, False), "int4": (4, False), "w8a8": (8, True)}
+# wq_linear calls of one decode step and layer: MG qkv, self o, cross q,
+# cross o, wi, wo; OCR qkv, o, gate + up, down
+MG_PROJ, OCR_PROJ = 6, 4
+
+
+def legacy_qlinear(x, w_q, s):
+    """The port's decode projection before wq_linear: the whole int8 weight
+    cast to x's dtype, the product in x's dtype, the float32 scale, the
+    cast back."""
+    import torch
+    import torch.nn.functional as F
+
+    return (F.linear(x, w_q.to(x.dtype)).to(torch.float32) * s).to(x.dtype)
+
+
+def check_wq_linear(dev) -> dict:
+    """wq_linear against its plain version in each weight form at each of
+    WQ_SHAPES and WQ_ROWS (W8A8 bit for bit; the others within TOL), timed
+    over enough copies of the weights in turn that each call reads its
+    weights from HBM, beside its bound (weights, scales, x and y once; the
+    products at the bf16 or int8 tensor rate), the library call (F.linear
+    over the weights dequantised to bf16 beforehand, the product without
+    the cast; for W8A8 torch._int_mm, cuBLASLt's s8 product, on the same
+    codes, with the rows padded to 24 when fewer, as it takes only more
+    than 16) and, for int8, the port's projection before this kernel
+    (legacy_qlinear). Returns the headline, MG wi int8 at 8 rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from markushgrapher_torch.ops import wq_linear as wq
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    head = None
+    for label, k, n in WQ_SHAPES:
+        w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+        for form, (bits, act) in WQ_FORMS.items():
+            w_q, w_s = wq.quantize_w(w, bits)
+            copies = [(w_q, w_s)] + [
+                (w_q.clone(), w_s.clone())
+                for _ in range(turns_past_l2(nbytes(w_q)) - 1)]
+            deq = (wq.unpack_w4(w_q) if bits == 4 else w_q).to(torch.bfloat16)
+            deqs = [deq] + [deq.clone() for _ in range(
+                turns_past_l2(nbytes(deq)) - 1)] if not act else []
+            for rows in WQ_ROWS:
+                x = torch.randn((rows, k), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                got = wq.wq_linear(x, w_q, w_s, bits, act)
+                ref = wq.wq_linear_plain(x, w_q, w_s, bits, act)
+                torch.cuda.synchronize()
+                if act and not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"wq_linear {label} w8a8 rows={rows}: differs from "
+                        f"plain at {int((got != ref).sum())} entries")
+                res = dict(
+                    max_abs_err=0.0 if act else within("wq_linear", got, ref),
+                    ms=cuda_ms(in_turns(lambda c: wq.wq_linear(
+                        x, c[0], c[1], bits, act), copies), 50),
+                    plain_ms=cuda_ms(in_turns(lambda c: wq.wq_linear_plain(
+                        x, c[0], c[1], bits, act), copies), 20),
+                    **bound(nbytes(x, w_q, w_s, got), 2 * rows * k * n,
+                            PEAK_INT8_OPS if act else PEAK_FLOPS))
+                if act:
+                    xq = F.pad(wq.quantize_act8(x)[0], (0, 0, 0, max(
+                        0, 24 - rows)))
+                    res["library_ms"] = cuda_ms(in_turns(
+                        lambda c: torch._int_mm(xq, c[0].t()), copies), 50)
+                else:
+                    res["library_ms"] = cuda_ms(in_turns(
+                        lambda d: F.linear(x, d), deqs), 50)
+                report("wq_linear", f"{label} K={k} N={n} {form} rows={rows}",
+                       res)
+                if form == "int8":
+                    legacy_ms = cuda_ms(in_turns(
+                        lambda c: legacy_qlinear(x, *c), copies), 20)
+                    print(f"  the port's projection before this kernel: "
+                          f"{legacy_ms:.4f} ms", flush=True)
+                if (label, form, rows) == ("MG wi", "int8", 8):
+                    head = res
+            del copies, deqs, deq
+    return {"wq_linear": head}
 
 
 def lse_within(got, ref) -> float:
@@ -1284,7 +1422,9 @@ def drive_ocr_path(model, tok, pages, flags: dict, dev,
 
     eng = ocr_engine(model, tok, flags, dev, tokens)
     errs: dict = {}
-    with checked_kernels(errs, CHECKED_STEPS * model.cfg.text.num_layers), \
+    layers = model.cfg.text.num_layers
+    with checked_kernels(errs, CHECKED_STEPS * layers,
+                         CHECKED_STEPS * OCR_PROJ * layers), \
             checked_megastep(errs, CHECKED_STEPS):
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -1301,19 +1441,20 @@ def drive_ocr_path(model, tok, pages, flags: dict, dev,
                         if e})
 
 
-def time_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
-    """Prefill ms, decode ms/step and img/s of one warm generate call (a
-    16-token call warms it up)."""
+def time_ocr_path(model, tok, pages, flags: dict, dev,
+                  tokens: int = OCR_TOKENS) -> dict:
+    """Prefill ms, decode ms/step and img/s of one warm generate call of
+    `tokens` new tokens (a 16-token call warms it up)."""
     import torch
 
     from markushgrapher_torch.data.device_pixels import ocr_from_uint8
 
     ocr_engine(model, tok, flags, dev, 16).generate_batch_async(pages)
-    eng = ocr_engine(model, tok, flags, dev)
+    eng = ocr_engine(model, tok, flags, dev, tokens)
     prompt = eng.prompt_ids[None].expand(pages.shape[0], -1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.prefill(ocr_from_uint8(pages), prompt, OCR_TOKENS,
+    model.prefill(ocr_from_uint8(pages), prompt, tokens,
                   quant_kv=True, int4=flags.get("int4_kv", False))
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
@@ -1322,7 +1463,7 @@ def time_ocr_path(model, tok, pages, flags: dict, dev) -> dict:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     return dict(prefill_ms=pre_ms,
-                ms_per_step=(total * 1e3 - pre_ms) / (OCR_TOKENS - 1),
+                ms_per_step=(total * 1e3 - pre_ms) / (tokens - 1),
                 img_per_s=pages.shape[0] / total)
 
 
@@ -1388,11 +1529,13 @@ def run_stream(model, tok, pages, budgets, flags, dev, checked: int = 0):
     eng = ChemicalOCR(model, tok, OCREngineConfig(
         max_new_tokens=STREAM_TOKENS, batch_size=OCR_BATCH, eos_id=-1,
         pad_id=-1, **flags), device=str(dev))
-    calls = checked * model.cfg.text.num_layers
+    calls = [checked * model.cfg.text.num_layers,
+             checked * OCR_PROJ * model.cfg.text.num_layers]
     errs: dict = {}
-    with (checked_kernels(errs, calls) if checked else
-          contextlib.nullcontext([0])) as left, stream_probe(eng) as probe:
-        probe["on_wave"] = lambda: left.__setitem__(0, calls)
+    with (checked_kernels(errs, *calls) if checked else
+          contextlib.nullcontext([0, 0])) as left, \
+            stream_probe(eng) as probe:
+        probe["on_wave"] = lambda: left.__setitem__(slice(None), calls)
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -1412,10 +1555,11 @@ def run_stream(model, tok, pages, budgets, flags, dev, checked: int = 0):
 def check_stream(name: str, res: dict, budgets, kname: str, block_skip: bool,
                  layers: int, vocab: int) -> None:
     """A stream path's run: every page back once with exactly its budget
-    of token ids (pad -1 after), the kernel launched once a layer a step and
-    no other; where the run checked its kernel calls, the decode calls'
-    forms (per-row bias; under block_skip live keys below the ring's
-    length) and the kernel checked."""
+    of token ids (pad -1 after), the kernel launched once a layer a step,
+    wq_linear once a projection a layer a step, and no other; where the
+    run checked its kernel calls, the decode calls' forms (per-row bias;
+    under block_skip live keys below the ring's length) and the kernels
+    checked."""
     order = [i for i, _ in res["retired"]]
     if sorted(order) != list(range(len(budgets))):
         raise AssertionError(f"{name}: pages returned {order}")
@@ -1427,6 +1571,7 @@ def check_stream(name: str, res: dict, budgets, kname: str, block_skip: bool,
                                  f"{ids.tolist()}")
     want = {k: 0 for k in KERNELS}
     want[kname] = layers * res["steps"]
+    want["wq_linear"] = OCR_PROJ * layers * res["steps"]
     if res["launches"] != want:
         raise AssertionError(f"{name}: launch counts {res['launches']} != "
                              f"{want} ({res['steps']} steps)")
@@ -1438,7 +1583,7 @@ def check_stream(name: str, res: dict, budgets, kname: str, block_skip: bool,
     if not need <= res["forms"]:
         raise AssertionError(f"{name}: decode calls {sorted(res['forms'])} "
                              f"lack the forms {sorted(need)}")
-    if set(res["inside"]) != {kname}:
+    if set(res["inside"]) != {kname, "wq_linear"}:
         raise AssertionError(f"{name}: kernels checked inside the model: "
                              f"{sorted(res['inside'])}")
 
@@ -1514,21 +1659,26 @@ def _rel(a, b) -> float:
 
 
 @contextlib.contextmanager
-def checked_kernels(errs: dict, decode_calls: int = -1):
+def checked_kernels(errs: dict, decode_calls: int = -1, wq_calls: int = -1):
     """Route the model's calls of each kernel wrapper through a check: the
     wrapper and its plain version run on the same inputs, the kernel's
-    output is held to the kernel tolerance (bias_build_i8: bit-exact; the
-    others: TOL, on the attention output before the o-projection and the
-    residual add), and the kernel's output goes on. errs[name] collects the
-    max abs error of every checked call, errs["forms"] the forms of the
+    output is held to the kernel tolerance (bias_build_i8 and W8A8
+    wq_linear: bit-exact; the others: TOL, on the attention output before
+    the o-projection and the residual add, and on each projection's
+    output), and the kernel's output goes on. errs[name] collects the max
+    abs error of every checked call, errs["forms"] the forms of the
     decode kernels' calls ("decode_int4 row_map+live_keys", "decode_int4
     per-row bias", "decode_int4 live_keys < keys", ...). With
-    decode_calls >= 0 only that many decode-kernel calls are checked; later
-    ones go to the kernel alone (the context yields that count as a
-    one-item list, which the caller may raise again). The plain versions
-    launch no kernel, so the launch counts stay those of the path."""
+    decode_calls >= 0 only that many decode-kernel calls are checked, and
+    with wq_calls >= 0 that many wq_linear calls; later ones go to the
+    kernel alone (the context yields the two counts as a list, which the
+    caller may raise again). The plain versions launch no kernel, so the
+    launch counts stay those of the path."""
+    import torch
+
     from markushgrapher_torch.ops import (bias_build, flash_attention,
-                                          flash_relbias, mxu_decode)
+                                          flash_relbias, mxu_decode,
+                                          wq_linear)
 
     sites = {"bias_build_i8": (bias_build, "encoder_position_bias_kernel_i8",
                                bias_build.plain),
@@ -1543,10 +1693,12 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
              "decode_i8": (mxu_decode, "cross_decode_mxu",
                            mxu_decode.plain_int8),
              "lattice_self_int4": (mxu_decode, "lattice_self_int4",
-                                   mxu_decode.plain_lattice_int4)}
+                                   mxu_decode.plain_lattice_int4),
+             "wq_linear": (wq_linear, "wq_linear",
+                           wq_linear.wq_linear_plain)}
     saved = {name: getattr(mod, attr)
              for name, (mod, attr, _) in sites.items()}
-    left = [decode_calls]
+    left = [decode_calls, wq_calls]
 
     forms = errs.setdefault("forms", set())
 
@@ -1564,11 +1716,21 @@ def checked_kernels(errs: dict, decode_calls: int = -1):
                 if left[0] == 0:
                     return kernel(*args, **kw)
                 left[0] -= 1
+            elif name == "wq_linear":
+                if left[1] == 0:
+                    return kernel(*args, **kw)
+                left[1] -= 1
             got, ref = kernel(*args, **kw), plain(*args, **kw)
-            if name == "bias_build_i8":
-                if not all(bool((g == r).all()) for g, r in zip(got, ref)):
-                    raise AssertionError("bias_build_i8 in the model: "
-                                         "differs from plain")
+            # bias_build_i8 returns (slab, scales); wq_linear's args[4]:
+            # W8A8
+            exact = name == "bias_build_i8" or (name == "wq_linear"
+                                                and args[4])
+            if exact:
+                pairs = zip(got, ref) if name == "bias_build_i8" else [
+                    (got, ref)]
+                if not all(torch.equal(g, r) for g, r in pairs):
+                    raise AssertionError(f"{name} in the model: differs "
+                                         "from plain")
                 errs[name].append(0.0)
             else:
                 errs[name].append(within(name, got, ref))
@@ -1632,8 +1794,9 @@ def drive_path(model, mt, cfg, host: dict, route: str, kv: str, beams: int,
                                           **opts))
     pack = cross_pack(cfg, host)[0] if kv != "bf16" else None
     errs: dict = {}
-    checked = CHECKED_STEPS * 2 * cfg.vtl.num_decoder_layers
-    with checked_kernels(errs, decode_calls=checked):
+    layers = cfg.vtl.num_decoder_layers
+    with checked_kernels(errs, CHECKED_STEPS * 2 * layers,
+                         CHECKED_STEPS * MG_PROJ * layers):
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -1645,6 +1808,72 @@ def drive_path(model, mt, cfg, host: dict, route: str, kv: str, beams: int,
                 encoder_pack=model.encoder_pack_len, forms=forms,
                 inside={name: (max(e), len(e)) for name, e in errs.items()
                         if e})
+
+
+def drive_greedy(model, cfg, host: dict, dev, steps: int,
+                 flags: dict) -> dict:
+    """One greedy path through model.encode and greedy_generate, as JAX's
+    bench.py serves the decode-weight modes (EvalConfig has no bit width):
+    the int8 slab encoder, int4 KV, the cross caches packed to the batch's
+    ceil-256 valid count, generate's weight flags. Launch counts zeroed
+    just before and read just after; every kernel call of the encode and
+    of the first CHECKED_STEPS decode steps held to its plain version."""
+    import torch
+
+    from markushgrapher_torch.decode.generate import greedy_generate
+    from markushgrapher_torch.ops import _build
+
+    model = route_model(model, cfg, host, "int8 slab", "int4")
+    pack = cross_pack(cfg, host)[0]
+    args = encoder_args(host, dev)
+    layers = cfg.vtl.num_decoder_layers
+    errs: dict = {}
+    with checked_kernels(errs, CHECKED_STEPS * 2 * layers,
+                         CHECKED_STEPS * MG_PROJ * layers):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        enc, mask = model.encode(*args)
+        ids = greedy_generate(model, enc, mask, steps, eos_id=-1,
+                              quant_cross_kv=True, quant_weights=True,
+                              cross_pack_len=pack, **flags)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    forms = errs.pop("forms")
+    return dict(ids=ids.cpu(), launches=launches,
+                first_s=time.perf_counter() - t0, forms=forms,
+                inside={name: (max(e), len(e)) for name, e in errs.items()
+                        if e})
+
+
+def time_greedy(model, cfg, host: dict, dev, flags: dict) -> dict:
+    """Encode ms, decode ms/step, img/s and wq_linear launches per step of
+    one warm greedy run of WQ_STEPS steps along drive_greedy's path (a
+    16-step run warms it up)."""
+    import torch
+
+    from markushgrapher_torch.decode.generate import greedy_generate
+    from markushgrapher_torch.ops import _build
+
+    model = route_model(model, cfg, host, "int8 slab", "int4")
+    pack = cross_pack(cfg, host)[0]
+    args = encoder_args(host, dev)
+    kw = dict(eos_id=-1, quant_cross_kv=True, quant_weights=True,
+              cross_pack_len=pack, **flags)
+    greedy_generate(model, *model.encode(*args), 16, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    enc, mask = model.encode(*args)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    greedy_generate(model, enc, mask, WQ_STEPS, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return dict(encode_ms=enc_s * 1e3,
+                decode_ms_per_step=(total - enc_s) * 1e3 / WQ_STEPS,
+                img_per_s=host["input_ids"].shape[0] / total,
+                wq_per_step=_build.LAUNCHES["wq_linear"] / WQ_STEPS)
 
 
 def packed_vs_unpacked(model, cfg, host: dict, dev) -> float:
@@ -1964,7 +2193,8 @@ def main() -> None:
           f"({_build.library_path().name}); ptxas: {ptxas}", flush=True)
     for name, usage in ptxas_usage(log, FLASH_FWD_SYMBOLS +
                                    FLASH_BWD_SYMBOLS + MEGASTEP_SYMBOLS +
-                                   DECODE_SYMBOLS + ELEMENTWISE_SYMBOLS):
+                                   DECODE_SYMBOLS + ELEMENTWISE_SYMBOLS +
+                                   WQ_SYMBOLS):
         print(f"ptxas {name}: {usage}", flush=True)
 
     # phase 3: kernels against their plain versions, at the batch's pack
@@ -1979,6 +2209,7 @@ def main() -> None:
     kres.update(check_ocr_kernels(dev, ocr))
     kres.update(check_flash_bias(dev))
     kres.update(check_flash_relbias(dev))
+    kres.update(check_wq_linear(dev))
 
     # phase 4: the paths at full width, through Evaluator.generate_batch
     phase(4)
@@ -2001,6 +2232,8 @@ def main() -> None:
             want[kname] = 1 if kname == "bias_build_i8" else cfg.vtl.num_layers
         for kname in dec:
             want[kname] = 2 * layers * steps
+        if kv != "bf16":
+            want["wq_linear"] = MG_PROJ * layers * steps
         if opts.get("lattice"):
             # the self-attention reads the rings segment by segment
             dec += ("lattice_self_int4",)
@@ -2032,9 +2265,41 @@ def main() -> None:
                 or ids.max() >= cfg.vtl.vocab_size:
             raise AssertionError(f"{name}: bad ids {ids.shape} "
                                  f"[{ids.min()}, {ids.max()}]")
-        if set(res["inside"]) != set(ROUTE_KERNELS[route]) | set(dec):
+        if set(res["inside"]) != set(ROUTE_KERNELS[route]) | set(dec) | (
+                {"wq_linear"} if kv != "bf16" else set()):
             raise AssertionError(f"{name}: kernels checked inside the model: "
                                  f"{sorted(res['inside'])}")
+        for r in range(2):
+            print(f"  row {r}: {mt.decode(ids[r][:40])[:160]!r}", flush=True)
+        for kname, n in res["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    # int4 weights and W8A8 through greedy_generate
+    for name, flags in WQ_PATHS:
+        res = drive_greedy(model, cfg, host, dev, WQ_STEPS, flags)
+        ids = res["ids"]
+        want = {k: 0 for k in KERNELS}
+        want.update(bias_build_i8=1, flash_i8=cfg.vtl.num_layers,
+                    decode_int4=2 * layers * WQ_STEPS,
+                    wq_linear=MG_PROJ * layers * WQ_STEPS)
+        print(f"{name} (int8 slab encoder, int4 KV, {flags}): {WQ_STEPS} "
+              f"steps, launches {res['launches']} (expected {want}); first "
+              f"run {res['first_s']:.2f} s", flush=True)
+        for kname, (err, n) in res["inside"].items():
+            exact = kname == "wq_linear" and flags.get("act_quant")
+            print(f"  inside the model, {kname} vs plain on the same inputs: "
+                  f"{n} calls (the encode, {CHECKED_STEPS} decode steps), "
+                  f"max abs err {err:.3e}, all within tolerance"
+                  f"{' (W8A8: bit for bit)' if exact else ''}", flush=True)
+        if res["launches"] != want:
+            raise AssertionError(f"{name}: launch counts {res['launches']} "
+                                 f"!= {want}")
+        if set(res["inside"]) != {"bias_build_i8", "flash_i8", "decode_int4",
+                                  "wq_linear"}:
+            raise AssertionError(f"{name}: kernels checked inside the model: "
+                                 f"{sorted(res['inside'])}")
+        if ids.shape != (batch, WQ_STEPS) or ids.min() < 0 \
+                or ids.max() >= cfg.vtl.vocab_size:
+            raise AssertionError(f"{name}: bad ids {ids.shape}")
         for r in range(2):
             print(f"  row {r}: {mt.decode(ids[r][:40])[:160]!r}", flush=True)
         for kname, n in res["launches"].items():
@@ -2058,7 +2323,7 @@ def main() -> None:
     if not (e2e["masks_equal"] and e2e["finite"]):
         raise AssertionError("encoder mask differs or states not finite")
 
-    # phase 4, OCR: the four paths through ChemicalOCR.generate_batch
+    # phase 4, OCR: the paths of OCR_PATHS through ChemicalOCR.generate_batch
     pages = torch.tensor(np.random.RandomState(SEED).randint(
         0, 256, (OCR_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
     tok = mt.tokenizer
@@ -2077,6 +2342,10 @@ def main() -> None:
         want = {k: 0 for k in KERNELS}
         want[kname] = (tokens - 1) * (
             1 if kname == "ocr_megastep" else t.num_layers)
+        checked = {kname}
+        if kname != "ocr_megastep":
+            want["wq_linear"] = (tokens - 1) * OCR_PROJ * t.num_layers
+            checked.add("wq_linear")
         print(f"{name}: {tokens} tokens, launches {res['launches']} "
               f"(expected {want}); decode forms {sorted(res['forms'])}; "
               f"first run {res['first_s']:.2f} s", flush=True)
@@ -2098,7 +2367,7 @@ def main() -> None:
         if tuple(ids.shape) != (OCR_BATCH, tokens) or int(ids.min()) < 0 \
                 or int(ids.max()) >= t.vocab_size:
             raise AssertionError(f"{name}: bad ids {tuple(ids.shape)}")
-        if set(res["inside"]) != {kname}:
+        if set(res["inside"]) != checked:
             raise AssertionError(f"{name}: kernels checked inside the model: "
                                  f"{sorted(res['inside'])}")
         for r, text in enumerate(res["texts"]):
@@ -2213,19 +2482,30 @@ def main() -> None:
                 raise AssertionError(
                     f"greedy int4 b{b}: {t['decode_launches_per_step']} "
                     f"decode launches a step, more than {2 * layers}")
+    # the three decode-weight forms in turns, greedy int4 at batch 8
+    for name, flags in (("greedy_int4_w8", {}),) + WQ_PATHS + (
+            ("greedy_int4_w8", {}),):
+        t = time_greedy(model, cfg, host, dev, flags)
+        print(f"timing {name} b{batch}: encode {t['encode_ms']:.1f} ms, "
+              f"decode {t['decode_ms_per_step']:.3f} ms/step, "
+              f"{t['img_per_s']:.3f} img/s ({WQ_STEPS} steps; wq_linear "
+              f"{t['wq_per_step']:.1f} a step from the launch counters) on "
+              f"{card}", flush=True)
     pages_big = torch.tensor(np.random.RandomState(SEED + 1).randint(
         0, 256, (MEGA_BATCH, 512, 512, 3)), dtype=torch.uint8, device=dev)
     batched = {}
     for name, flags, _, opts in OCR_PATHS + (
-            (OCR_PATHS[2][0], OCR_PATHS[2][1], None, dict(big=True)),):
+            (OCR_PATHS[2][0], OCR_PATHS[2][1], None, dict(big=True)),
+            (OCR_PATHS[0][0], OCR_PATHS[0][1], None, dict(timed=128))):
         if opts.get("block_skip"):
             continue
         batch_pages = pages_big if opts.get("big") else pages
-        t = time_ocr_path(ocr, tok, batch_pages, flags, dev)
+        timed = opts.get("timed", OCR_TOKENS)
+        t = time_ocr_path(ocr, tok, batch_pages, flags, dev, timed)
         batched.setdefault(name, t)
         print(f"timing {name} b{batch_pages.shape[0]}: prefill "
               f"{t['prefill_ms']:.1f} ms, decode {t['ms_per_step']:.3f} "
-              f"ms/step, {t['img_per_s']:.3f} img/s ({OCR_TOKENS} new "
+              f"ms/step, {t['img_per_s']:.3f} img/s ({timed} new "
               f"tokens) on {card}", flush=True)
     del pages_big
     # continuous batching (warm from phase 4), beside the batched int4 path

@@ -5,8 +5,9 @@ The encoder runs once per batch; decoding is a Python loop over steps
 against preallocated KV caches, with early exit once every row has finished
 (greedy) or the beam search halts. As in the reference, `quant_cross_kv`
 picks quantised caches (the model's `int4_cross` scheme, int4 or int8) over
-float caches in the model's dtype, and `quant_weights` the int8 decode
-weights over the model's own.
+float caches in the model's dtype, and `quant_weights` quantised decode
+weights over the model's own: int8, or int4 at `weight_bits=4`, or W8A8
+dots (`act_quant`, int8 weights only).
 
 The quantised beam keeps its self rings as copy-on-write segments (the
 reference's TPU serving default, `pick_self_seg`): after each step only the
@@ -78,14 +79,15 @@ def _tile_beams(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _prepare(model, enc, enc_mask, max_length, self_rows, quant_cross_kv,
-             quant_weights):
+             quant_weights, weight_bits, act_quant):
     """The caches (cross K/V of enc's rows, `self_rows` self caches), the
-    int8 decode weights (or None), the causal decoder bias and the cross
-    mask bias [B, 1, K] (padding of a quantised slab's key axis at
+    quantised decode weights (or None), the causal decoder bias and the
+    cross mask bias [B, 1, K] (padding of a quantised slab's key axis at
     -1e9)."""
     caches = model.init_cache(enc, max_length, quant_cross_kv,
                               self_rows=self_rows)
-    qw = model.quantize_weights() if quant_weights else None
+    qw = (model.quantize_weights(weight_bits, act_quant) if quant_weights
+          else None)
     bias_full = model.full_decoder_bias(max_length)
     cross_bias = mask_bias(enc_mask)[:, :1, 0, :]
     if quant_cross_kv:
@@ -99,15 +101,17 @@ def _prepare(model, enc, enc_mask, max_length, self_rows, quant_cross_kv,
 def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                     max_length: int, eos_id: int = 1, pad_id: int = 0,
                     start_id: int = 0, quant_cross_kv: bool = False,
-                    quant_weights: bool = False,
+                    quant_weights: bool = False, weight_bits: int = 8,
+                    act_quant: bool = False,
                     cross_pack_len: Optional[int] = None,
                     row_budgets: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Returns generated ids [B, max_length] (pad after EOS).
 
     quant_cross_kv serves the model's quantised KV scheme (int4 or int8 by
-    its `int4_cross`), else float caches; quant_weights the int8 decode
-    weights. row_budgets ([B] ints, optional) caps each row's tokens;
+    its `int4_cross`), else float caches; quant_weights the quantised
+    decode weights at weight_bits (8 or 4), act_quant W8A8 dots (int8
+    weights only). row_budgets ([B] ints, optional) caps each row's tokens;
     positions past a row's budget are pad, and a budget of 0 emits only
     pad."""
     batch = enc.shape[0]
@@ -116,7 +120,7 @@ def greedy_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
         enc, enc_mask = pack_encoder_for_cross(enc, enc_mask, cross_pack_len)
     caches, qw, bias_full, cross_bias = _prepare(
         model, enc, enc_mask, max_length, None, quant_cross_kv,
-        quant_weights)
+        quant_weights, weight_bits, act_quant)
     budgets = None if row_budgets is None else torch.as_tensor(
         row_budgets, device=dev)
 
@@ -160,6 +164,7 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
                   pad_id: int = 0, start_id: int = 0,
                   length_penalty: float = 1.0, early_stopping: bool = False,
                   quant_cross_kv: bool = False, quant_weights: bool = False,
+                  weight_bits: int = 8, act_quant: bool = False,
                   cross_pack_len: Optional[int] = None,
                   self_seg: Optional[int] = None,
                   lattice: Optional[bool] = None
@@ -192,7 +197,7 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
         enc, enc_mask = _tile_beams(enc, k), _tile_beams(enc_mask, k)
     caches, qw, bias_full, cross_bias = _prepare(
         model, enc, enc_mask, max_length, batch * k, quant_cross_kv,
-        quant_weights)
+        quant_weights, weight_bits, act_quant)
 
     f32 = dict(dtype=torch.float32, device=dev)
     # beam 0 active, the others muted at step 0 so all beams start identical
@@ -286,7 +291,8 @@ def beam_generate(model, enc: torch.Tensor, enc_mask: torch.Tensor,
 def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
              num_beams: int = 1, eos_id: int = 1, pad_id: int = 0,
              start_id: int = 0, quant_cross_kv: bool = False,
-             quant_weights: bool = False,
+             quant_weights: bool = False, weight_bits: int = 8,
+             act_quant: bool = False,
              cross_pack_len: Optional[int] = None,
              self_seg: Optional[int] = None,
              lattice: Optional[bool] = None) -> torch.Tensor:
@@ -297,6 +303,7 @@ def generate(model, batch: Dict[str, torch.Tensor], max_length: int = 512,
         batch["input_ids"], batch["bbox"], batch["attention_mask"],
         batch.get("pixel_values"), batch.get("ocsr_pixel_values"))
     kw = dict(quant_cross_kv=quant_cross_kv, quant_weights=quant_weights,
+              weight_bits=weight_bits, act_quant=act_quant,
               cross_pack_len=cross_pack_len)
     if num_beams <= 1:
         return greedy_generate(model, enc, enc_mask, max_length, eos_id,

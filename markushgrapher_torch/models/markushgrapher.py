@@ -24,7 +24,8 @@ change nothing.
 
 The decode side serves float caches in the model's dtype, or quantised KV
 caches (int4 or int8, the reference's `int4_cross` flag), with the modules'
-weights or int8 decode weights (`quantize_weights`). `block_skip` (the
+weights or quantised decode weights (`quantize_weights`: int8, int4 or
+W8A8, each projection through `ops.wq_linear`). `block_skip` (the
 reference's flag and default) reads only the quantised self rings' valid
 prefix.
 
@@ -437,11 +438,13 @@ class MarkushGrapherModel(nn.Module):
                                        self_rows or enc.shape[0])
 
     @torch.no_grad()
-    def quantize_weights(self) -> Dict:
-        """int8 decode weights (decoder projections / FF and the lm_head),
-        the reference's quant_weights at weight_bits=8."""
+    def quantize_weights(self, bits: int = 8, act: bool = False) -> Dict:
+        """Quantised decode weights, the reference's quant_weights: the
+        decoder projections / FF at `bits` (8 or 4), act marking W8A8 (int8
+        weights only), and the lm_head, which stays int8 either way (its
+        argmax is the decode output)."""
         lm_q, lm_s = quantize_w(self.lm_head.weight)
-        return {"layers": self.decoder.quantize_weights(),
+        return {"layers": self.decoder.quantize_weights(bits, act),
                 "lm_head": {"q": lm_q, "s": lm_s}}
 
     def full_decoder_bias(self, max_len: int) -> torch.Tensor:

@@ -35,8 +35,9 @@ through a row map (`reorder_self_rings`, the `row_map` and `lattice`
 options of the decode step), and `block_skip` reads only the rings' valid
 prefix (`DecoderLayer._self_attend_quant`). The
 decode-step matmuls run against the modules' weights, or (quant_weights)
-against int8 weights dequantised to the compute dtype and scaled per output
-channel afterwards.
+against weights quantised per output channel (`quantize_weights`: int8 or
+int4 codes, or W8A8 with the activations quantised per row), each
+projection one call of `ops.wq_linear` (`qlinear`).
 
 Training (`train_forward`, grad-enabled): dropout at the reference's sites
 (after the feed-forward activation, on each sub-layer output before its
@@ -60,7 +61,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from markushgrapher_torch.ops import (flash_attention, flash_relbias,
-                                      mxu_decode)
+                                      mxu_decode, wq_linear)
+from markushgrapher_torch.ops.wq_linear import quantize_w  # noqa: F401
 
 Cache = Dict[str, torch.Tensor]
 
@@ -83,21 +85,23 @@ def quantize_kv4(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale[..., 0]
 
 
-def quantize_w(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weight-only symmetric int8 quantisation of a Linear weight [out, in],
-    one float32 scale per output channel."""
-    wf = w.to(torch.float32)
-    s = wf.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
-    q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
-    return q, s[:, 0]
+def quant_marks(bits: int, act: bool) -> Dict:
+    """A decode layer's quantised-weight dict before its weights: the bit
+    width and the W8A8 mark (JAX's `act_s8`), which needs int8 weights."""
+    if act and bits != 8:
+        raise ValueError("act-quantized decode dots require int8 weights "
+                         f"(got bits={bits})")
+    return {"bits": bits, "act_s8": act}
 
 
-def qlinear(x: torch.Tensor, w_q: torch.Tensor,
-            s: torch.Tensor) -> torch.Tensor:
-    """x @ dequant(w_q).T in x's dtype, then the per-channel scale in
-    float32, back to x's dtype."""
-    y = F.linear(x, w_q.to(x.dtype))
-    return (y.to(torch.float32) * s).to(x.dtype)
+def qlinear(x: torch.Tensor, qw: Dict, key: str,
+            use_kernels: bool = True) -> torch.Tensor:
+    """x against the quantised weight `key` of a layer's dict (its codes
+    key_q, scales key_s, the dict's bit width and W8A8 mark) through
+    `ops.wq_linear`, or its plain version on any device when not
+    use_kernels."""
+    fn = wq_linear.wq_linear if use_kernels else wq_linear.wq_linear_plain
+    return fn(x, qw[key + "_q"], qw[key + "_s"], qw["bits"], qw["act_s8"])
 
 
 class RMSNorm(nn.Module):
@@ -418,40 +422,46 @@ class DecoderLayer(nn.Module):
                 1, 2).to(sdt).contiguous()
         return cache
 
-    def quantize_weights(self) -> Dict[str, torch.Tensor]:
-        qw: Dict[str, torch.Tensor] = {}
+    def quantize_weights(self, bits: int = 8, act: bool = False) -> Dict:
+        """The decode step's weights quantised per output channel
+        (`ops.wq_linear.quantize_w`): int8 codes, or int4 at bits=4; act
+        marks W8A8 (int8 weights only, JAX's ValueError otherwise). q / k /
+        v stack along the output rows, and under gated-gelu so do wi_0 /
+        wi_1: one product each, whose activation W8A8 quantises once, as
+        JAX's `_ff_decode` does for both wi dots."""
+        qw = quant_marks(bits, act)
         sa, ca = self.self_attn, self.cross_attn
-        qkv = torch.cat([sa.q.weight, sa.k.weight, sa.v.weight], dim=0)
-        qw["qkv_q"], qw["qkv_s"] = quantize_w(qkv)
-        qw["self_o_q"], qw["self_o_s"] = quantize_w(sa.o.weight)
-        qw["cross_q_q"], qw["cross_q_s"] = quantize_w(ca.q.weight)
-        qw["cross_o_q"], qw["cross_o_s"] = quantize_w(ca.o.weight)
-        names = ("wi_0", "wi_1", "wo") if self.ff_proj == "gated-gelu" \
-            else ("wi", "wo")
-        for name in names:
-            qw[name + "_q"], qw[name + "_s"] = quantize_w(
-                getattr(self.ff, name).weight)
+        ff = self.ff
+        wi = (torch.cat([ff.wi_0.weight, ff.wi_1.weight], dim=0)
+              if self.ff_proj == "gated-gelu" else ff.wi.weight)
+        for key, w in (("qkv", torch.cat([sa.q.weight, sa.k.weight,
+                                          sa.v.weight], dim=0)),
+                       ("self_o", sa.o.weight), ("cross_q", ca.q.weight),
+                       ("cross_o", ca.o.weight), ("wi", wi),
+                       ("wo", ff.wo.weight)):
+            qw[key + "_q"], qw[key + "_s"] = quantize_w(w, bits)
         return qw
 
-    def _ff_decode(self, h: torch.Tensor, qw) -> torch.Tensor:
+    def _ff_decode(self, h: torch.Tensor, qw,
+                   use_kernels: bool) -> torch.Tensor:
         if qw is None:
             return self.ff(h)
+        y = qlinear(h, qw, "wi", use_kernels)
         if self.ff_proj == "gated-gelu":
-            a = F.gelu(qlinear(h, qw["wi_0_q"], qw["wi_0_s"]),
-                       approximate="tanh")
-            mid = a * qlinear(h, qw["wi_1_q"], qw["wi_1_s"])
+            a, g = y.chunk(2, dim=-1)
+            mid = F.gelu(a, approximate="tanh") * g
         else:
-            mid = F.relu(qlinear(h, qw["wi_q"], qw["wi_s"]))
-        return qlinear(mid, qw["wo_q"], qw["wo_s"])
+            mid = F.relu(y)
+        return qlinear(mid, qw, "wo", use_kernels)
 
     @staticmethod
-    def _proj(attn: "Attention", name: str, h: torch.Tensor, qw,
-              key: str) -> torch.Tensor:
-        """Projection `name` of `attn` on h: the module's weight, or the int8
-        weight qw[key] when the decode weights are quantised."""
+    def _proj(attn: "Attention", name: str, h: torch.Tensor, qw, key: str,
+              use_kernels: bool) -> torch.Tensor:
+        """Projection `name` of `attn` on h: the module's weight, or the
+        quantised weight qw[key] when the decode weights are quantised."""
         if qw is None:
             return getattr(attn, name)(h)
-        return qlinear(h, qw[key + "_q"], qw[key + "_s"])
+        return qlinear(h, qw, key, use_kernels)
 
     def _write_ring(self, cache: Cache, step: int, k_new: torch.Tensor,
                     v_new: torch.Tensor) -> None:
@@ -518,13 +528,14 @@ class DecoderLayer(nn.Module):
         """x [rows, 1, D]; self_bias_row [1, H, S] f32 (causal row);
         cross_bias [B, 1, K] f32 over the cross caches' rows (rows = B *
         beams for quantised slabs, which beams share; B = rows for float
-        caches, tiled per beam). qw: int8 decode weights, or None for the
-        module's own. row_map (int32 [rows, n_seg]): ring segment s of row
-        b lives in row row_map[b, s] (beam search's copy-on-write rings;
-        the segment being written is always b's own); block_skip: read the
-        rings' valid prefix only; lattice: read int4 rings under a row map
-        segment by segment (`_self_attend_quant`). Writes this step's K/V
-        into the self caches in place."""
+        caches, tiled per beam). qw: quantised decode weights
+        (`quantize_weights`), or None for the module's own. row_map (int32
+        [rows, n_seg]): ring segment s of row b lives in row row_map[b, s]
+        (beam search's copy-on-write rings; the segment being written is
+        always b's own); block_skip: read the rings' valid prefix only;
+        lattice: read int4 rings under a row map segment by segment
+        (`_self_attend_quant`). Writes this step's K/V into the self caches
+        in place."""
         rows = x.shape[0]
         heads, dk = self.num_heads, self.d_kv
         hd = heads * dk
@@ -533,7 +544,7 @@ class DecoderLayer(nn.Module):
         if qw is None:
             q, k_new, v_new = (sa.split(lin(h)) for lin in (sa.q, sa.k, sa.v))
         else:
-            qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])        # [rows,1,3HD]
+            qkv = qlinear(h, qw, "qkv", use_kernels)         # [rows,1,3HD]
             q, k_new, v_new = (sa.split(t) for t in qkv.split(hd, dim=-1))
         if "self_k" in cache:
             # float caches: float32 scores, softmax, probabilities in the
@@ -547,9 +558,10 @@ class DecoderLayer(nn.Module):
             out = self._self_attend_quant(q[:, 0], cache, step,
                                           self_bias_row, use_kernels,
                                           row_map, block_skip, lattice)
-        x = x + self._proj(sa, "o", out.reshape(rows, 1, hd), qw, "self_o")
-        q = self._proj(ca, "q", self.ln_cross(x), qw,
-                       "cross_q")                             # [rows,1,HD]
+        x = x + self._proj(sa, "o", out.reshape(rows, 1, hd), qw, "self_o",
+                           use_kernels)
+        q = self._proj(ca, "q", self.ln_cross(x), qw, "cross_q",
+                       use_kernels)                           # [rows,1,HD]
         if "cross_k" in cache:
             out = dense_attention(ca.split(q), cache["cross_k"],
                                   cache["cross_v"], cross_bias[:, :, None, :])
@@ -564,8 +576,9 @@ class DecoderLayer(nn.Module):
                          cache["cross_k" + suffix], cache["cross_k_s"],
                          cache["cross_v" + suffix], cache["cross_v_s"],
                          cross_bias, head_map=head_map)
-        x = x + self._proj(ca, "o", out.reshape(rows, 1, hd), qw, "cross_o")
-        return x + self._ff_decode(self.ln_ff(x), qw)
+        x = x + self._proj(ca, "o", out.reshape(rows, 1, hd), qw, "cross_o",
+                           use_kernels)
+        return x + self._ff_decode(self.ln_ff(x), qw, use_kernels)
 
 
 class Decoder(nn.Module):
@@ -601,15 +614,15 @@ class Decoder(nn.Module):
         return [layer.init_cache(enc, max_len, quant_cross, int4_cross, rows)
                 for layer in self.layers()]
 
-    def quantize_weights(self):
-        return [layer.quantize_weights() for layer in self.layers()]
+    def quantize_weights(self, bits: int = 8, act: bool = False):
+        return [layer.quantize_weights(bits, act) for layer in self.layers()]
 
     def decode_step(self, x, caches, step, self_bias_row, cross_bias, qw,
                     use_kernels: bool = True,
                     row_map: Optional[torch.Tensor] = None,
                     block_skip: bool = False,
                     lattice: bool = False) -> torch.Tensor:
-        """qw: the per-layer int8 weights, or None for the modules' own;
+        """qw: the per-layer quantised weights, or None for the modules' own;
         row_map / block_skip / lattice as `DecoderLayer.decode_step`."""
         for layer, cache, lqw in zip(self.layers(), caches,
                                      qw or [None] * self.num_layers):

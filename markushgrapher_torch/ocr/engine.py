@@ -11,9 +11,11 @@ vector step). Then loc-grammar parsing into the `cells` column, and
 `predict_to_disk`'s DatasetDict save: the reference's stage-1 / stage-2
 on-disk contract (`markushgrapher/ocr/chemical_ocr.py:396-478`).
 
-`OCREngineConfig` has every field of the JAX config. Not ported yet, and
-refused by name: int4 decode weights (`weight_bits=4`) and W8A8 decode dots
-(`act_quant=True`). `mega_block_s` picks the TPU kernel's ring block and
+`OCREngineConfig` has every field of the JAX config, with its refusals:
+the decode weights are int8, int4 (`weight_bits=4`) or W8A8 dots
+(`act_quant=True`, int8 weights only: `quantize_weights` raises otherwise),
+and the megastep takes int8 rings and int8 weights only. `mega_block_s`
+picks the TPU kernel's ring block and
 changes nothing here (the megastep reads the ring in chunks that fit shared
 memory). The engine runs on the CUDA device unless the caller passes
 `device="cpu"`. It takes a built model, as the reference's does: valid-prefix
@@ -46,11 +48,11 @@ class OCREngineConfig:
     batch_size: int = 8
     eos_id: int = 2                 # -1 never fires: fixed-length decode
     pad_id: int = 0
-    quant_weights: bool = False     # int8 decode-step weights (serving mode)
+    quant_weights: bool = False     # quantised decode-step weights (serving)
     quant_kv: bool = False          # int8 KV rings (serving mode)
     int4_kv: bool = False           # pack the KV rings to int4 (needs quant_kv)
-    weight_bits: int = 8            # 8 only: int4 decode weights not ported
-    act_quant: bool = False         # False only: W8A8 not ported
+    weight_bits: int = 8            # 4: int4 decode weights
+    act_quant: bool = False         # W8A8 decode dots (int8 weights)
     megastep: bool = False          # whole-step decode kernel, int8 weights
     mega_block_s: int = 0           # the TPU kernel's ring block: no effect
     stream: bool = False            # continuous batching in predict()
@@ -62,23 +64,16 @@ class OCREngineConfig:
             raise ValueError(
                 "OCREngineConfig: stream=True is incompatible with "
                 "megastep=True (stacked rings have no per-row positions)")
-        if self.weight_bits != 8:
-            raise ValueError(
-                f"OCREngineConfig: int4 decode weights (weight_bits="
-                f"{self.weight_bits}) are not ported yet; weight_bits=8")
-        if self.act_quant:
-            raise ValueError(
-                "OCREngineConfig: W8A8 decode dots (act_quant=True) are not "
-                "ported yet")
         if self.int4_kv and not self.quant_kv:
             raise ValueError(
                 "OCREngineConfig: int4_kv=True requires quant_kv=True — "
                 "prefill would silently build full-precision rings otherwise")
-        if self.megastep and (not self.quant_kv or self.int4_kv):
-            # the step quantises its own weights to int8 (megastep_pack)
+        if self.megastep and (not self.quant_kv or self.int4_kv
+                              or self.weight_bits != 8 or self.act_quant):
             raise ValueError(
-                "OCREngineConfig: megastep=True requires int8 rings "
-                "(quant_kv=True, int4_kv=False)")
+                "OCREngineConfig: megastep=True requires int8 rings and "
+                "int8 weights (quant_kv=True, int4_kv=False, weight_bits=8, "
+                "act_quant=False)")
 
 
 def build_ocr_configs(overrides=None):
@@ -142,7 +137,8 @@ class ChemicalOCR:
             mw = model.megastep_pack()
             caches = model.stack_caches(caches)
         else:
-            qw = model.quantize_weights() if cfg.quant_weights else None
+            qw = (model.quantize_weights(cfg.weight_bits, cfg.act_quant)
+                  if cfg.quant_weights else None)
         batch = pixel_values.shape[0]
         first = logits[:, -1].argmax(dim=-1)
         out = torch.full((batch, cfg.max_new_tokens), cfg.pad_id,
@@ -285,7 +281,8 @@ class ChemicalOCR:
         if budgets.shape != (n_imgs,):
             raise ValueError(f"stream_retired: {budgets.shape[0]} budgets "
                              f"for {n_imgs} images")
-        qw = self.model.quantize_weights() if cfg.quant_weights else None
+        qw = (self.model.quantize_weights(cfg.weight_bits, cfg.act_quant)
+              if cfg.quant_weights else None)
         dev = self.device
 
         next_img = min(batch, n_imgs)

@@ -32,9 +32,13 @@ rings up to the 128-key block of the batch's largest slot (the reference's
 `_skip_kw`); each row's own mask zeroes what lies past its slot, so the
 result is the same. The caller gives that slot as a host integer
 (`slot_bound`, any upper bound), so a step reads nothing back from the
-device. The combined k||v int4 ring and W8A8 / int4 weights are not ported
-(ROADMAP). The whole-step decode (`decode_step_mega`) runs every layer in
-one launch of `ops.megastep`.
+device. The combined k||v int4 ring is not ported (ROADMAP). The decode
+weights are the layers' own or quantised per output channel
+(`quantize_weights`: int8, int4, or W8A8 with the activations quantised per
+row; the LM head stays int8), each projection one call of `ops.wq_linear`;
+the o projection takes the attention output in the compute dtype. The
+whole-step decode (`decode_step_mega`) runs every layer in one launch of
+`ops.megastep`, over int8 weights.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from torch import nn
 
 from markushgrapher_torch.models.swin import LayerNorm
 from markushgrapher_torch.models.t5 import (RMSNorm, qlinear, quantize_kv,
-                                            quantize_kv4, quantize_w)
+                                            quantize_kv4, quant_marks,
+                                            quantize_w)
 from markushgrapher_torch.ops import megastep, mxu_decode
 
 Cache = Dict[str, torch.Tensor]
@@ -275,40 +280,43 @@ class LMLayer(nn.Module):
                 ts, (0, 0, 0, pad)).transpose(1, 2).to(sdt).contiguous()
         return x, cache
 
-    def quantize_weights(self) -> Dict[str, torch.Tensor]:
-        """int8 decode-step weights with per-output-channel scales; q / k / v
-        stack along the output rows."""
-        qw: Dict[str, torch.Tensor] = {}
-        qkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=0)
-        qw["qkv_q"], qw["qkv_s"] = quantize_w(qkv)
-        for name in ("o", "gate", "up", "down"):
-            qw[name + "_q"], qw[name + "_s"] = quantize_w(
-                getattr(self, name).weight)
+    def quantize_weights(self, bits: int = 8, act: bool = False) -> Dict:
+        """Decode-step weights quantised per output channel (int8, or int4
+        at bits=4; act marks W8A8, int8 only), JAX's dict: q / k / v stack
+        along the output rows (qkv), gate / up too (gu: one product, whose
+        activation W8A8 quantises once), then o and down."""
+        qw = quant_marks(bits, act)
+        for key, w in (("qkv", torch.cat([self.q.weight, self.k.weight,
+                                          self.v.weight], dim=0)),
+                       ("o", self.o.weight),
+                       ("gu", torch.cat([self.gate.weight, self.up.weight],
+                                        dim=0)),
+                       ("down", self.down.weight)):
+            qw[key + "_q"], qw[key + "_s"] = quantize_w(w, bits)
         return qw
 
-    def _qkv_decode(self, h, qw):
+    def _qkv_decode(self, h, qw, use_kernels: bool):
         if qw is None:
             return (self._split(self.q(h), self.heads),
                     self._split(self.k(h), self.groups),
                     self._split(self.v(h), self.groups))
-        qkv = qlinear(h, qw["qkv_q"], qw["qkv_s"])
+        qkv = qlinear(h, qw, "qkv", use_kernels)
         nq, nkv = self.heads * self.d, self.groups * self.d
         q, k, v = qkv.split([nq, nkv, nkv], dim=-1)
         return (self._split(q, self.heads), self._split(k, self.groups),
                 self._split(v, self.groups))
 
-    def _o_proj(self, out, qw):
-        out = out.reshape(*out.shape[:2], -1)
+    def _o_proj(self, out, qw, use_kernels: bool):
+        out = out.reshape(*out.shape[:2], -1).to(self.dtype)
         if qw is None:
-            return self.o(out.to(self.dtype))
-        return qlinear(out, qw["o_q"], qw["o_s"]).to(self.dtype)
+            return self.o(out)
+        return qlinear(out, qw, "o", use_kernels)
 
-    def _mlp_decode(self, h, qw):
+    def _mlp_decode(self, h, qw, use_kernels: bool):
         if qw is None:
             return self.down(F.silu(self.gate(h)) * self.up(h))
-        mid = (F.silu(qlinear(h, qw["gate_q"], qw["gate_s"]))
-               * qlinear(h, qw["up_q"], qw["up_s"]))
-        return qlinear(mid, qw["down_q"], qw["down_s"])
+        gate, up = qlinear(h, qw, "gu", use_kernels).chunk(2, dim=-1)
+        return qlinear(F.silu(gate) * up, qw, "down", use_kernels)
 
     def decode_step(self, x, cache: Cache, rope, positions, slot, kv_mask,
                     qw=None, use_kernels: bool = True,
@@ -320,7 +328,7 @@ class LMLayer(nn.Module):
         (`valid_prefix_blocks`), or None. Writes this step's K/V into the
         ring in place, at each row's slot."""
         h = self.ln_attn(x)
-        q, k_new, v_new = self._qkv_decode(h, qw)
+        q, k_new, v_new = self._qkv_decode(h, qw, use_kernels)
         q = apply_rope(q, rope, positions)
         k_new = apply_rope(k_new, rope, positions)
         b = x.shape[0]
@@ -354,8 +362,8 @@ class LMLayer(nn.Module):
                          cache["k" + scales], cache["v" + vals],
                          cache["v" + scales], kv_mask[:, 0],
                          **(skip or {}))[:, None]
-        x = x + self._o_proj(out, qw)
-        return x + self._mlp_decode(self.ln_mlp(x), qw)
+        x = x + self._o_proj(out, qw, use_kernels)
+        return x + self._mlp_decode(self.ln_mlp(x), qw, use_kernels)
 
 
 class ChemicalOCRModel(nn.Module):
@@ -471,13 +479,14 @@ class ChemicalOCRModel(nn.Module):
         return self._logits(self.final_ln(x)[:, -1:]), caches, l0
 
     @torch.no_grad()
-    def quantize_weights(self) -> Dict:
-        """int8 decode-step weights of every layer and the tied-embedding LM
-        head (per-vocab-row scales). The head's int8 codes are held as
-        float32 (exact): its product takes bf16-rounded activations and sums
-        in float32, as the JAX package's head does."""
+    def quantize_weights(self, bits: int = 8, act: bool = False) -> Dict:
+        """Quantised decode-step weights of every layer (`LMLayer.
+        quantize_weights`) and the tied-embedding LM head, which stays int8
+        at any bits (per-vocab-row scales). The head's int8 codes are held
+        as float32 (exact): its product takes bf16-rounded activations and
+        sums in float32, as the JAX package's head does."""
         emb_q, emb_s = quantize_w(self.embed)
-        return {"layers": [layer.quantize_weights()
+        return {"layers": [layer.quantize_weights(bits, act)
                            for layer in self.layers()],
                 "lm_head": {"w": emb_q.to(torch.float32), "s": emb_s}}
 

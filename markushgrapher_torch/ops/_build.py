@@ -6,7 +6,8 @@ The sources in `markushgrapher_torch/csrc/*.cu` expose a plain C interface
 encoder flash forwards, over the int8 slab, the float slab and
 the in-kernel relative bias, are bias policies of `flash_fwd_sm90.cuh`,
 which with the float-bias backward and the OCR megastep shares the Hopper
-pieces of `sm90.cuh`). At first use
+pieces of `sm90.cuh`; `wq_linear.cu` serves the quantised decode
+projections). At first use
 they are compiled with nvcc for Hopper (`sm_90a`), one nvcc process per
 source, all started together, and linked into one shared library under
 `markushgrapher_torch/_build/` (named by a hash of the sources and flags,
@@ -36,7 +37,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bias_build_i8.cu", "flash_i8.cu", "decode_int4.cu",
            "decode_i8.cu", "ocr_megastep.cu", "flash_bias.cu",
-           "flash_bias_bwd.cu", "flash_relbias.cu", "normalize_u8.cu")
+           "flash_bias_bwd.cu", "flash_relbias.cu", "normalize_u8.cu",
+           "wq_linear.cu")
 # no --use_fast_math: the bias builder must be bit-exact with its plain
 # version, and the attention kernels keep IEEE division and expf. The
 # megastep's grid.sync() needs no -rdc (CUDA 11 and later).
@@ -48,7 +50,7 @@ LAUNCHES: Dict[str, int] = {"bias_build_i8": 0, "flash_i8": 0,
                             "ocr_megastep": 0, "flash_bias": 0,
                             "flash_bias_dkv": 0, "flash_bias_dq": 0,
                             "flash_relbias": 0, "lattice_self_int4": 0,
-                            "normalize_u8": 0}
+                            "normalize_u8": 0, "wq_linear": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -87,6 +89,8 @@ _SIGNATURES = {
     "mg_flash_relbias": [_P] * 9 + [_I] * 7 + [_F, _P, _P],
     # the same, then the bias terms' buffer, stream
     "mg_flash_relbias_scores": [_P] * 9 + [_I] * 7 + [_F, _P, _P, _P],
+    # x, w, scales, rows, K, N, mode, xq, sx, out, stream
+    "mg_wq_linear": [_P] * 3 + [_I] * 4 + [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -71,8 +71,7 @@ def pack_lm(qw_layers: Sequence[Dict[str, torch.Tensor]],
     return {
         "wqkv": st(lambda w: w["qkv_q"]), "sqkv": st(lambda w: w["qkv_s"]),
         "wo": st(lambda w: w["o_q"]), "so": st(lambda w: w["o_s"]),
-        "wgu": st(lambda w: torch.cat([w["gate_q"], w["up_q"]])),
-        "sgu": st(lambda w: torch.cat([w["gate_s"], w["up_s"]])),
+        "wgu": st(lambda w: w["gu_q"]), "sgu": st(lambda w: w["gu_s"]),
         "wd": st(lambda w: w["down_q"]), "sd": st(lambda w: w["down_s"]),
         "ln_attn": torch.stack(list(ln_attn)).to(torch.float32),
         "ln_mlp": torch.stack(list(ln_mlp)).to(torch.float32),

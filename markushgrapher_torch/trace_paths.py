@@ -7,15 +7,17 @@ MarkushGrapher (`--stage mg`): the flagship `MarkushGrapherConfig()` with
 seeded random bf16 weights on seeded synthetic pages (as `chip_smoke.py`
 does); one encode along each encoder route (int8 slab, bf16 slab, in-kernel
 bias, packed) and, for each decode path (greedy or beam-5 under int4 or int8
-KV with int8 weights, and `configs/predict.yaml`'s beam-5 over bf16 KV and
-bf16 weights) at the batch sizes below, 512 steps' worth of caches with eos
-never firing. Beam-5 int4 also runs over copy-on-write rings of four
-128-position segments (read through the row map, and with the lattice) and
-greedy int4 under `block_skip`, with windows at steps 32-48 and 300-316
-beside the one-segment beam's and the full-ring greedy's.
+KV with int8 weights, greedy int4 with int4 weights or W8A8 dots, and
+`configs/predict.yaml`'s beam-5 over bf16 KV and bf16 weights) at the batch
+sizes below, 512 steps' worth of caches with eos never firing. Beam-5 int4
+also runs over copy-on-write rings of four 128-position segments (read
+through the row map, and with the lattice) and greedy int4 under
+`block_skip`, with windows at steps 32-48 and 300-316 beside the
+one-segment beam's and the full-ring greedy's.
 ChemicalOCR (`--stage ocr`): `OCRConfig()` with seeded random bf16 weights
 on seeded uint8 pages at batch 8, through `ChemicalOCR.generate_batch`
-with 512 new tokens, along its three paths (int4 KV, int8 KV, megastep).
+with 512 new tokens, along its paths (int4 KV, int8 KV, megastep; int4 KV
+with int4 weights and with W8A8 dots).
 Training (`--stage train`): one `Trainer.train_step` of the flagship at
 batch 8 on seeded labelled pages, TrainConfig from configs/train.yaml
 without accumulation (as `chip_smoke.py` phase 6), after two warm steps.
@@ -46,8 +48,9 @@ SEED = 0
 SKIP, STEPS = 32, 16
 TOP = 12            # kernels by name kept per window in the JSON
 # (label, KV scheme, beams, batch sizes, options); "bf16": float caches and
-# weights. Options: the beam's self_seg / lattice, the model's block_skip,
-# and the first step of the window (default SKIP).
+# weights. Options: the beam's self_seg / lattice, generate's weight_bits /
+# act_quant, the model's block_skip, and the first step of the window
+# (default SKIP).
 PATHS = (("greedy int4", "int4", 1, (8, 48), {}),
          ("greedy int8", "int8", 1, (8, 48), {}),
          ("beam-5 int4", "int4", 5, (8, 16), {}),
@@ -56,7 +59,9 @@ PATHS = (("greedy int4", "int4", 1, (8, 48), {}),
          ("beam-5 int4 seg 128", "int4", 5, (8, 16), dict(self_seg=128)),
          ("beam-5 int4 lattice", "int4", 5, (8, 16), dict(lattice=True)),
          ("greedy int4 block_skip", "int4", 1, (8, 48),
-          dict(block_skip=True)))
+          dict(block_skip=True)),
+         ("greedy int4 w4", "int4", 1, (8, 48), dict(weight_bits=4)),
+         ("greedy int4 w8a8", "int4", 1, (8, 48), dict(act_quant=True)))
 # later windows of the paths whose reads grow with the decode index
 LATE = dict(skip=300)
 PATHS += tuple((label, kv, beams, sizes, dict(opts, **LATE))
@@ -69,7 +74,11 @@ OCR_PATHS = (("ocr int4", dict(quant_kv=True, int4_kv=True,
                                quant_weights=True)),
              ("ocr int8", dict(quant_kv=True, quant_weights=True)),
              ("ocr megastep", dict(quant_kv=True, quant_weights=True,
-                                   megastep=True)))
+                                   megastep=True)),
+             ("ocr int4 w4", dict(quant_kv=True, int4_kv=True,
+                                  quant_weights=True, weight_bits=4)),
+             ("ocr int4 w8a8", dict(quant_kv=True, int4_kv=True,
+                                    quant_weights=True, act_quant=True)))
 TRAIN_BATCH, TRAIN_WARM = 8, 2
 # device-time kinds, by the first substring of the kernel name that matches
 KINDS = (("ocr_megastep", ("ocr_megastep",)),
@@ -78,6 +87,7 @@ KINDS = (("ocr_megastep", ("ocr_megastep",)),
          ("flash_bias", ("flash_bias_fwd",)),
          ("flash_relbias", ("flash_relbias",)),
          ("flash_bias backward", ("flash_bias_dkv", "flash_bias_dq")),
+         ("wq_linear", ("wq_linear",)),
          ("optimizer (foreach)", ("multi_tensor",)),
          ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")),
          ("copy / fill", ("Memcpy", "Memset", "copy_", "fill_")),
@@ -194,22 +204,23 @@ def step_window(model, attr: str, run, traced,
 
 def decode_window(model, enc, mask, pack, beams, traced,
                   quant: bool = True, skip: Optional[int] = None,
-                  **beam_kw) -> Tuple[float, object]:
+                  **gen_kw) -> Tuple[float, object]:
     """The MarkushGrapher decode loop (greedy or beam search, with the
-    beam's self_seg / lattice), over the model's quantised KV and int8
-    weights, or (quant=False) float caches and weights."""
+    beam's self_seg / lattice and generate's weight_bits / act_quant), over
+    the model's quantised KV and quantised weights, or (quant=False) float
+    caches and weights."""
     from markushgrapher_torch.decode.generate import (beam_generate,
                                                       greedy_generate)
 
     steps = model.cfg.max_seq_length_decoder
     kw = dict(eos_id=-1, cross_pack_len=pack, quant_cross_kv=quant,
-              quant_weights=quant)
+              quant_weights=quant, **gen_kw)
     if beams == 1:
         def run():
             greedy_generate(model, enc, mask, steps, **kw)
     else:
         def run():
-            beam_generate(model, enc, mask, steps, beams, **kw, **beam_kw)
+            beam_generate(model, enc, mask, steps, beams, **kw)
     return step_window(model, "decode_step", run, traced, skip)
 
 

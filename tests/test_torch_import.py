@@ -65,6 +65,7 @@ def test_port_imports_no_jax(block):
                  "markushgrapher_torch.ops.megastep",
                  "markushgrapher_torch.ops.tensor_core",
                  "markushgrapher_torch.ops.preprocess",
+                 "markushgrapher_torch.ops.wq_linear",
                  "markushgrapher_torch.train.trainer",
                  "markushgrapher_torch.train.optim",
                  "markushgrapher_torch.train.checkpoint",

@@ -14,6 +14,7 @@ import torch
 
 from markushgrapher_torch.ops import _build, bias_build, flash_attention
 from markushgrapher_torch.ops import flash_relbias, megastep, mxu_decode
+from markushgrapher_torch.ops import wq_linear as wq
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +40,79 @@ def test_main_path_shapes(dev, chip_smoke):
     res = chip_smoke.check_kernels(dev, pack=1280)
     res.update(chip_smoke.check_ocr_kernels(dev, chip_smoke.ocr_model(dev)))
     assert set(res) == set(chip_smoke.KERNELS) - set(chip_smoke.FLASH_BIAS) \
-        - {"flash_relbias"}
+        - {"flash_relbias", "wq_linear"}
+
+
+def test_wq_linear_main_path_shapes(dev, chip_smoke):
+    """wq_linear in its three forms at every MG and OCR projection shape
+    and chip_smoke's rows (8, 48, 80), W8A8 bit for bit."""
+    assert set(chip_smoke.check_wq_linear(dev)) == {"wq_linear"}
+
+
+def _wq_inputs(dev, rows, k, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+    x = torch.randn((rows, k), generator=gen, device=dev).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17, 48, 80, 240])
+@pytest.mark.parametrize("form", ["int8", "int4", "w8a8"])
+@pytest.mark.parametrize("k,n", [(960, 1600), (1024, 3072), (4096, 1024),
+                                 (2560, 960), (64, 40)])
+def test_wq_linear_matches_plain(dev, chip_smoke, form, rows, k, n):
+    """Each form against the plain version: W8A8 bit for bit, the others
+    within chip_smoke's TOL; K = 960 (15 x 64, no multiple of 128), K = 64
+    (one chunk, most warps idle), N = 40 (a ragged channel tile), rows 1 to
+    240 (one to four passes of row tiles); one launch a call."""
+    bits, act = chip_smoke.WQ_FORMS[form]
+    x, w = _wq_inputs(dev, rows, k, n, seed=rows + k)
+    w_q, w_s = wq.quantize_w(w, bits)
+    _build.reset_launches()
+    got = wq.wq_linear(x, w_q, w_s, bits, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wq_linear"] == 1
+    assert got.shape == (rows, n) and got.dtype == torch.bfloat16
+    ref = wq.wq_linear_plain(x, w_q, w_s, bits, act)
+    if act:
+        assert torch.equal(got, ref)
+    else:
+        chip_smoke.within("wq_linear", got, ref)
+
+
+def test_wq_linear_act_extremes(dev):
+    """W8A8 rows that are all zero, hold half-integer quotients and span
+    bf16's range, bit for bit; the row codes of the kernel's quantiser are
+    those of quantize_act8 (the plain version's)."""
+    rows, k, n = 24, 256, 64
+    x, w = _wq_inputs(dev, rows, k, n, seed=7)
+    x[0] = 0
+    x[1] = torch.arange(k, device=dev).to(torch.bfloat16) - 128
+    x[2] = x[2] * 1e30
+    x[3] = x[3] * 1e-30
+    w_q, w_s = wq.quantize_w(w, 8)
+    got = wq.wq_linear(x, w_q, w_s, 8, True)
+    assert torch.equal(got, wq.wq_linear_plain(x, w_q, w_s, 8, True))
+
+
+def test_wq_linear_leading_dims_and_refusals(dev):
+    """[B, 1, K] activations keep their leading dims; float32 activations,
+    a width no multiple of 64 and mismatched weights raise before any
+    launch."""
+    x, w = _wq_inputs(dev, 6, 128, 32)
+    w_q, w_s = wq.quantize_w(w, 4)
+    y = wq.wq_linear(x.reshape(6, 1, 128), w_q, w_s, 4)
+    assert y.shape == (6, 1, 32)
+    assert torch.equal(y[:, 0], wq.wq_linear(x, w_q, w_s, 4))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="bf16"):
+        wq.wq_linear(x.float(), w_q, w_s, 4)
+    x96, w96 = _wq_inputs(dev, 2, 96, 32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        wq.wq_linear(x96, *wq.quantize_w(w96, 8), 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        wq.wq_linear(x, w_q, w_s, 8)
+    assert _build.LAUNCHES["wq_linear"] == 0
 
 
 def test_bias_builder_packed_positions(dev):

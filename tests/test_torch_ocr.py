@@ -199,14 +199,19 @@ def test_engine_config_refusals_match_jax(kw):
 
 
 def test_engine_config_refuses_unported():
-    """The JAX config's int4 / W8A8 decode-weight values raise, each naming
-    its feature; continuous batching (stream, refill_batch, stream_inner)
-    builds as in JAX."""
-    for key, value, feature in (("weight_bits", 4, "int4 decode weights"),
-                                ("act_quant", True, "W8A8")):
-        j_eng.build_ocr_configs({key: value})
-        with pytest.raises(ValueError, match=feature):
-            t_eng.build_ocr_configs({key: value})
+    """Nothing of the JAX config is left unported: its int4 / W8A8
+    decode-weight values build as in JAX, and the megastep still refuses
+    them, as JAX's does; continuous batching (stream, refill_batch,
+    stream_inner) builds as in JAX."""
+    for key, value in (("weight_bits", 4), ("act_quant", True)):
+        assert getattr(t_eng.build_ocr_configs({key: value})[1], key) \
+            == getattr(j_eng.build_ocr_configs({key: value})[1], key) \
+            == value
+        mega = {key: value, "quant_kv": True, "megastep": True}
+        with pytest.raises(ValueError):
+            j_eng.build_ocr_configs(mega)
+        with pytest.raises(ValueError, match="int8 weights"):
+            t_eng.build_ocr_configs(mega)
     for key, value in (("stream", True), ("refill_batch", 16),
                        ("stream_inner", 8)):
         assert getattr(t_eng.build_ocr_configs({key: value})[1], key) \
@@ -217,7 +222,9 @@ def test_engine_config_refuses_unported():
 def test_engine_config_takes_every_jax_field():
     """Every field of the JAX OCREngineConfig, at its JAX default, builds in
     the port, one at a time and all together; mega_block_s (the TPU ring
-    block) at any value; weight_bits=4 raises."""
+    block) at any value; weight_bits=4 and act_quant=True build, alone and
+    together (as in JAX), and both still raise beside megastep=True; the
+    model refuses act with bits=4 when it quantises, as JAX's does."""
     jax_fields = dataclasses.fields(j_eng.OCREngineConfig)
     defaults = {f.name: f.default for f in jax_fields}
     for name, value in defaults.items():
@@ -227,8 +234,22 @@ def test_engine_config_takes_every_jax_field():
     assert {f.name: getattr(eng, f.name) for f in jax_fields} == defaults
     assert t_eng.build_ocr_configs({"mega_block_s": 256})[1].mega_block_s \
         == 256
-    with pytest.raises(ValueError, match="weight_bits=4"):
-        t_eng.build_ocr_configs({"weight_bits": 4})
+    for ov in ({"weight_bits": 4}, {"act_quant": True},
+               {"weight_bits": 4, "act_quant": True}):
+        eng = t_eng.build_ocr_configs(ov)[1]
+        assert {k: getattr(eng, k) for k in ov} == ov
+        j_eng.build_ocr_configs(ov)
+        mega = dict(ov, quant_kv=True, megastep=True)
+        with pytest.raises(ValueError):
+            j_eng.build_ocr_configs(mega)
+        with pytest.raises(ValueError, match="weight_bits=8"):
+            t_eng.build_ocr_configs(mega)
+    _, _, jmodel, params, tmodel, _, _ = make_pair("h4g2")
+    with pytest.raises(ValueError, match="bits=4"):
+        jmodel.apply(params, 4, True,
+                     method=j_vlm.ChemicalOCRModel.quantize_weights)
+    with pytest.raises(ValueError, match="bits=4"):
+        tmodel.quantize_weights(4, True)
 
 
 def test_empty_input_and_device():

@@ -607,18 +607,32 @@ def overfit():
                 samples=samples[:2], mt=mt)
 
 
-def _exact_matches(overfit, kv: str, weights: str) -> int:
+# generate's decode-weight flags of each weight scheme
+WEIGHTS = {"float": {}, "int8": dict(quant_weights=True),
+           "int4": dict(quant_weights=True, weight_bits=4),
+           "w8a8": dict(quant_weights=True, act_quant=True)}
+
+
+def _exact_matches(overfit, kv: str, weights: str, pack: bool = False) -> int:
     """Greedy decode of the overfit model under a KV scheme ("float",
-    "int8", "int4") and decode weights ("float", "int8"): how many of the
-    two samples come out CXSMILES-equal."""
+    "int8", "int4") and decode weights ("float", "int8", "int4", "w8a8"),
+    with the cross caches packed to the batch's valid maximum when `pack`:
+    how many of the two samples come out CXSMILES-equal."""
     from markushgrapher_torch.chem.evaluation import score_sample
     from markushgrapher_torch.decode.generate import generate
 
     mt = overfit["mt"]
     model = overfit["model"].clone(int4_cross=kv == "int4")
-    out = generate(model, overfit["inputs"], max_length=64, eos_id=1,
+    inputs = overfit["inputs"]
+    cross_pack_len = None
+    if pack:
+        _, enc_mask = model.encode(inputs["input_ids"], inputs["bbox"],
+                                   inputs["attention_mask"],
+                                   inputs["pixel_values"], None)
+        cross_pack_len = int(enc_mask.sum(1).max())
+    out = generate(model, inputs, max_length=64, eos_id=1,
                    quant_cross_kv=kv != "float",
-                   quant_weights=weights == "int8").numpy()
+                   cross_pack_len=cross_pack_len, **WEIGHTS[weights]).numpy()
     exact = 0
     for i, sample in enumerate(overfit["samples"]):
         gt_stable = mt.get_stable(sample["annotation"]) or {}
@@ -638,13 +652,24 @@ def test_overfit_then_greedy_int8_reproduces_samples(overfit):
 
 @pytest.mark.parametrize("kv,weights", [("float", "float"),
                                         ("int8", "float"),
-                                        ("int4", "int8")])
+                                        ("int4", "int8"),
+                                        ("int4", "int4"),
+                                        ("int4", "w8a8")])
 def test_overfit_quantisation_gate(overfit, kv, weights):
     """tests/test_learning.py::TestQuantizationGate through the port: the
     float32 decode (float KV, float weights) reproduces both samples, and
     every quantised serving mode (int8 KV with float or int8 weights, the
-    latter in the test above; int4 KV with int8 weights) keeps at least
-    its exact matches."""
+    latter in the test above; int4 KV with int8 weights, int4 weights or
+    W8A8 dots) keeps at least its exact matches."""
     baseline = _exact_matches(overfit, "float", "float")
     assert baseline == 2
     assert _exact_matches(overfit, kv, weights) >= baseline
+
+
+def test_overfit_full_decode_stack_gate(overfit):
+    """TestQuantizationGate.test_full_decode_stack through the port: int4
+    KV, W8A8 dots and the cross caches packed to the batch's valid maximum
+    keep the float32 decode's exact matches."""
+    baseline = _exact_matches(overfit, "float", "float")
+    assert baseline == 2
+    assert _exact_matches(overfit, "int4", "w8a8", pack=True) >= baseline
